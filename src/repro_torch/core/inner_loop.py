@@ -1,0 +1,187 @@
+"""Algorithm 2 — the compressed gradient-tracking inner loop ``IN``
+(``repro.core.inner_loop``'s counterpart, synchronous path).
+
+State per node (stacked over the leading node axis):
+    d      current model (y or z)
+    d_hat  reference point of the model (what neighbors believe we hold)
+    s      gradient tracker
+    s_hat  reference point of the tracker
+    g_prev gradient at the previous iterate (tracking delta)
+
+One step (paper Algorithm 2):
+    d^{k+1}    = d^k + gamma * sum_j w_ij (dhat_j - dhat_i) - eta * s^k
+    transmit   Q(d^{k+1} - dhat^k);   dhat^{k+1} = dhat^k + Q(.)
+    s^{k+1}    = s^k + gamma * sum_j w_ij (shat_j - shat_i) + grad^{k+1} - grad^k
+    transmit   Q(s^{k+1} - shat^k);   shat^{k+1} = shat^k + Q(.)
+
+Key invariants (tested):
+* mean dynamics are compression-free:  d_bar^{k+1} = d_bar^k - eta * s_bar^k  (Eq. 7)
+* tracking:                            s_bar^k = (1/m) sum_i grad_i(d_i^k)   (Prop. 4)
+
+Reference points and trackers PERSIST across outer rounds; because the
+objective changes between rounds (x moved), ``refresh_tracker`` re-bases the
+tracker with grad_new - grad_prev, which preserves the tracking invariant.
+
+Every step builds new tensors; no state is updated in place, so a caller's
+initial point survives a run.  The fabric-priced phases come with the
+network slice of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core.compression import Compressor
+from repro_torch.core.gossip import mix_delta_dense
+from repro_torch.core.types import Tree, consensus_error, tree_leaves, tree_map, tree_sq_norm
+from repro_torch.net.wire import codec_for, scan_tree_bytes
+
+
+class InnerState(NamedTuple):
+    d: Tree
+    d_hat: Tree
+    s: Tree
+    s_hat: Tree
+    g_prev: Tree
+
+
+def compress_stacked(
+    compressor: Compressor, generator: torch.Generator | None, tree: Tree
+) -> Tree:
+    """Apply Q per node to every leaf of a node-stacked tree."""
+    return tree_map(lambda leaf: compressor.compress_nodes(leaf, generator), tree)
+
+
+def inner_init(d0: Tree, grad_fn: Callable[[Tree], Tree]) -> InnerState:
+    """Fresh state: references start at the true values (zero residual),
+    tracker starts at the local gradient (standard GT init)."""
+    g0 = grad_fn(d0)
+    return InnerState(d=d0, d_hat=d0, s=g0, s_hat=g0, g_prev=g0)
+
+
+def refresh_tracker(state: InnerState, grad_fn) -> InnerState:
+    """Re-base the tracker after the objective changed (new outer x):
+    s += grad_new(d) - grad_prev keeps s_bar == mean grad under the NEW
+    objective, while reference points persist."""
+    g_new = grad_fn(state.d)
+    s = tree_map(lambda s_, gn, gp: s_ + gn - gp, state.s, g_new, state.g_prev)
+    return state._replace(s=s, g_prev=g_new)
+
+
+def inner_transmit(
+    compressor: Compressor, generator: torch.Generator | None, value: Tree, ref: Tree
+) -> Tree:
+    """The transmit half of a step: the compressed residual ``Q(value - ref)``,
+    the per-edge message payload."""
+    resid = tree_map(torch.sub, value, ref)
+    return compress_stacked(compressor, generator, resid)
+
+
+def inner_apply(
+    state: InnerState,
+    generator: torch.Generator | None,
+    grad_fn: Callable[[Tree], Tree],
+    compressor: Compressor,
+    gamma: float,
+    eta: float,
+    mix_d: Tree,
+    mix_s: Tree,
+) -> tuple[InnerState, tuple[Tree, Tree]]:
+    """One inner step with the MIXING DELTAS supplied by the caller; also
+    returns the two transmitted messages ``(q_d, q_s)``."""
+    # (1) model update: mix on REFERENCES, descend along tracker
+    d_new = tree_map(lambda d, md, s: d + gamma * md - eta * s, state.d, mix_d, state.s)
+
+    # (2) reference update via compressed residual (this is the transmission)
+    q_d = inner_transmit(compressor, generator, d_new, state.d_hat)
+    d_hat_new = tree_map(torch.add, state.d_hat, q_d)
+
+    # (3) tracker update: mix on tracker references + gradient delta
+    g_new = grad_fn(d_new)
+    s_new = tree_map(
+        lambda s, ms, gn, gp: s + gamma * ms + gn - gp, state.s, mix_s, g_new, state.g_prev
+    )
+
+    # (4) tracker reference update via compressed residual
+    q_s = inner_transmit(compressor, generator, s_new, state.s_hat)
+    s_hat_new = tree_map(torch.add, state.s_hat, q_s)
+
+    new_state = InnerState(d=d_new, d_hat=d_hat_new, s=s_new, s_hat=s_hat_new, g_prev=g_new)
+    return new_state, (q_d, q_s)
+
+
+def inner_step(
+    state: InnerState,
+    generator: torch.Generator | None,
+    grad_fn: Callable[[Tree], Tree],
+    W: torch.Tensor,
+    compressor: Compressor,
+    gamma: float,
+    eta: float,
+) -> InnerState:
+    """Synchronous step: mix on the current references, then apply."""
+    mix_d = mix_delta_dense(W, state.d_hat)
+    mix_s = mix_delta_dense(W, state.s_hat)
+    new_state, _ = inner_apply(state, generator, grad_fn, compressor, gamma, eta, mix_d, mix_s)
+    return new_state
+
+
+def inner_loop(
+    state: InnerState,
+    generator: torch.Generator | None,
+    grad_fn: Callable[[Tree], Tree],
+    W: torch.Tensor,
+    compressor: Compressor,
+    gamma: float,
+    eta: float,
+    K: int,
+) -> tuple[InnerState, dict]:
+    """Run K compressed-GT steps; returns final state + metrics.
+
+    ``msg_bytes`` is the exact wire bytes of the loop's K x 2 messages
+    (per-node broadcast accounting), counted on the device from the actual
+    payloads by `repro_torch.net.wire.scan_tree_bytes`."""
+    msg_bytes = None
+    for _ in range(K):
+        mix_d = mix_delta_dense(W, state.d_hat)
+        mix_s = mix_delta_dense(W, state.s_hat)
+        state, (q_d, q_s) = inner_apply(
+            state, generator, grad_fn, compressor, gamma, eta, mix_d, mix_s
+        )
+        nbytes = scan_tree_bytes(compressor, q_d) + scan_tree_bytes(compressor, q_s)
+        msg_bytes = nbytes if msg_bytes is None else msg_bytes + nbytes
+    if msg_bytes is None:
+        msg_bytes = torch.zeros((), dtype=torch.int64, device=tree_leaves(state.d)[0].device)
+    metrics = {
+        "consensus_err": consensus_error(state.d),
+        "compress_err": tree_sq_norm(tree_map(torch.sub, state.d, state.d_hat)),
+        "tracker_consensus_err": consensus_error(state.s),
+        "msg_bytes": msg_bytes,
+    }
+    return state, metrics
+
+
+def inner_message_bytes(
+    state: InnerState, compressor: Compressor, generator: torch.Generator | None = None
+) -> tuple[list[int], list[int]]:
+    """Exact per-node wire bytes of one inner step's two transmissions,
+    measured by serializing Q(d - d_hat) and Q(s - s_hat) with the codec
+    (current residuals; sizes are steady once residuals are nonzero)."""
+    codec = codec_for(compressor)
+    out = []
+    for a, b in ((state.d, state.d_hat), (state.s, state.s_hat)):
+        q = inner_transmit(compressor, generator, a, b)
+        m = tree_leaves(q)[0].shape[0]
+        out.append([codec.tree_bytes(tree_map(lambda v: v[i], q)) for i in range(m)])
+    return out[0], out[1]
+
+
+def inner_wire_bytes_per_round(
+    compressor: Compressor, single_node_tree: Tree, K: int, m: int
+) -> float:
+    """Analytic wire bytes one round of IN puts on the network (all m nodes):
+    each node transmits Q(d-resid) and Q(s-resid) once per step."""
+    per_msg = compressor.tree_wire_bytes(single_node_tree)
+    return 2.0 * per_msg * K * m

@@ -1,0 +1,44 @@
+"""Public wrappers over the compression kernels (``repro.kernels.ops``'s
+counterpart).
+
+Flatten / pad / reshape plumbing lives here; the kernels see clean
+(rows, block) tiles.  Blocks are cut PER NODE, as the reference cuts them
+(it vmaps the compressor over the node axis and pads each node's flat leaf
+on its own), and every node's blocks of a leaf go to ONE launch of shape
+(m * nb, block): no block ever straddles two nodes.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.topk_compress import block_topk_kernel
+
+
+def to_blocks(x: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
+    """Node-stacked (m, ...) -> ((m * nb, block) zero-padded tiles, d), where
+    d is the flat size of one node's leaf."""
+    m = x.shape[0]
+    flat = x.reshape(m, -1)
+    d = flat.shape[1]
+    nb = -(-d // block)
+    padded = F.pad(flat, (0, nb * block - d))
+    return padded.reshape(m * nb, block), d
+
+
+def from_blocks(tiles: torch.Tensor, d: int, like: torch.Tensor) -> torch.Tensor:
+    m = like.shape[0]
+    return tiles.reshape(m, -1)[:, :d].reshape(like.shape)
+
+
+def block_topk_nodes(x: torch.Tensor, ratio: float = 0.2, block: int = 1024) -> torch.Tensor:
+    """Kernel-backed block top-k of every node's copy of a node-stacked leaf."""
+    tiles, d = to_blocks(x, block)
+    k = max(1, int(round(ratio * block)))
+    return from_blocks(block_topk_kernel(tiles, k), d, x)
+
+
+def block_topk(x: torch.Tensor, ratio: float = 0.2, block: int = 1024) -> torch.Tensor:
+    """Kernel-backed contractive block top-k compressor (any input shape)."""
+    return block_topk_nodes(x.unsqueeze(0), ratio, block).squeeze(0)

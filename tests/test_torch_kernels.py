@@ -1,0 +1,181 @@
+"""The port's kernel modules on the CPU: the plain versions of B1 (block
+top-k), B2 (pack) and B3 (unpack) against the Pallas kernels run in
+interpret mode and against the reference's jnp oracle, bit for bit; the
+wrappers' blocking per node, shapes and contraction.  The CUDA kernels
+themselves are held to these plain versions on the card by chip_smoke.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.compression import KernelBlockTopK as JKernelBlockTopK
+from repro.core.inner_loop import compress_stacked as j_compress_stacked
+from repro.kernels.ops import block_topk as j_block_topk
+from repro.kernels.pack_residuals import pack_sparse_blocks as j_pack
+from repro.kernels.pack_residuals import unpack_sparse_blocks as j_unpack
+from repro.kernels.ref import block_topk_ref as j_block_topk_ref
+from repro.kernels.topk_compress import block_topk_pallas
+from repro_torch.core.compression import KernelBlockTopK
+from repro_torch.kernels.ops import block_topk, block_topk_nodes
+from repro_torch.kernels.pack_residuals import (
+    pack_sparse_blocks,
+    padded_k,
+    unpack_sparse_blocks,
+)
+from repro_torch.kernels.ref import block_topk_ref
+from repro_torch.kernels.topk_compress import block_topk_kernel
+
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _bits(a) -> np.ndarray:
+    """Raw bit patterns of a float array (f32 or bf16)."""
+    a = np.asarray(a)
+    return a.view(np.int32 if a.dtype.itemsize == 4 else np.int16)
+
+
+def _same_inputs(x: np.ndarray, dtype: str):
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(x).astype(jdt), torch.from_numpy(x).to(tdt)
+
+
+def _torch_bits(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.view(torch.int32).numpy()
+
+
+@pytest.mark.parametrize("nb", [1, 5, 16])
+@pytest.mark.parametrize("block", [128, 1024])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_topk_plain_matches_pallas_and_ref_bit_for_bit(nb, block, dtype):
+    rng = np.random.default_rng(nb * 7 + block)
+    x = rng.normal(size=(nb, block)).astype(np.float32)
+    xj, xt = _same_inputs(x, dtype)
+    k = max(1, int(round(0.2 * block)))
+    got = block_topk_kernel(xt, k)  # a CPU tensor: the plain version
+    np.testing.assert_array_equal(_torch_bits(got), _torch_bits(block_topk_ref(xt, k)))
+    want_ref = np.asarray(j_block_topk_ref(xj, k))
+    np.testing.assert_array_equal(_torch_bits(got), _bits(want_ref))
+    want_pallas = np.asarray(block_topk_pallas(xj, k=k, block=block, interpret=True))
+    if dtype == "f32":
+        # XLA fuses the interpret-mode kernel body and rewrites x * mask into
+        # a select, so its dropped negatives are +0.0 where the jnp oracle
+        # (and the port) give -0.0; every other bit agrees
+        want_pallas = np.where(want_pallas == 0, np.float32(0), want_pallas)
+        got_np = got.numpy()
+        got_np = np.where(got_np == 0, np.float32(0), got_np)
+        np.testing.assert_array_equal(_bits(got_np), _bits(want_pallas))
+    else:
+        np.testing.assert_array_equal(_torch_bits(got), _bits(want_pallas))
+
+
+def test_topk_drops_negatives_to_negative_zero():
+    x = torch.tensor([[-3.0, 2.0, -0.5, 0.25] + [0.0] * 124])
+    out = block_topk_kernel(x, 2)
+    assert out[0, 0] == -3.0 and out[0, 1] == 2.0
+    assert torch.signbit(out[0, 2]) and out[0, 2] == 0.0
+    assert not torch.signbit(out[0, 3])
+
+
+def _pack_rows(block: int) -> np.ndarray:
+    """Rows with -0.0 entries, an empty row and a row with more survivors
+    than kpad (k = 100 -> kpad = 128 < 200 survivors)."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(5, block)).astype(np.float32)
+    x[0] = np.where(rng.random(block) < 0.2, x[0], 0.0)
+    x[0, 1::17] = -0.0
+    x[1] = 0.0  # empty row
+    x[2, :] = 0.0
+    x[2, [0, 5, block - 1]] = [-0.0, 4.0, -2.5]
+    x[3] = np.where(rng.random(block) < 0.8, x[3], 0.0)  # ~200 survivors
+    x[4] = np.where(rng.random(block) < 0.35, x[4], -0.0)
+    return x
+
+
+def test_pack_and_unpack_plain_match_pallas_exactly():
+    block, k = 256, 100
+    x = _pack_rows(block)
+    vj, ij = j_pack(jnp.asarray(x), k=k, block=block, interpret=True)
+    vt, it = pack_sparse_blocks(torch.from_numpy(x), k, block)
+    assert vt.shape == (5, padded_k(k)) and vt.dtype == torch.float32
+    assert it.dtype == torch.int32
+    assert (np.count_nonzero(x, axis=1) > padded_k(k)).any()
+    np.testing.assert_array_equal(_torch_bits(vt), _bits(vj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    uj = j_unpack(vj, ij, block=block, interpret=True)
+    ut = unpack_sparse_blocks(vt, it, block)
+    np.testing.assert_array_equal(_torch_bits(ut), _bits(uj))
+
+
+def test_unpack_inverts_pack_when_survivors_fit():
+    block = 128
+    rng = np.random.default_rng(5)
+    x = np.where(rng.random((7, block)) < 0.15, rng.normal(size=(7, block)), 0.0).astype(np.float32)
+    k = int(np.count_nonzero(x, axis=1).max())
+    vals, idx = pack_sparse_blocks(torch.from_numpy(x), k, block)
+    back = unpack_sparse_blocks(vals, idx, block)
+    np.testing.assert_array_equal(back.numpy(), x)
+
+
+def test_unpack_sums_duplicates_and_ignores_out_of_range_indices():
+    vals = torch.zeros((1, 128))
+    idx = torch.full((1, 128), 128, dtype=torch.int32)
+    vals[0, :4] = torch.tensor([1.0, 2.0, 4.0, 8.0])
+    idx[0, :4] = torch.tensor([3, 3, -1, 200], dtype=torch.int32)
+    out = unpack_sparse_blocks(vals, idx, 128)
+    want = np.asarray(j_unpack(jnp.asarray(vals.numpy()), jnp.asarray(idx.numpy()), block=128, interpret=True))
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert out[0, 3] == 3.0 and out.sum() == 3.0
+
+
+@pytest.mark.parametrize("shape", [(100,), (3, 7, 11), (1025,), (4096,)])
+def test_block_topk_wrapper_arbitrary_shapes(shape):
+    rng = np.random.default_rng(len(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    out = block_topk(torch.from_numpy(x), ratio=0.25, block=128)
+    assert out.shape == shape
+    want = np.asarray(j_block_topk(jnp.asarray(x), ratio=0.25, block=128))
+    np.testing.assert_array_equal(out.numpy() != 0, want != 0)
+    np.testing.assert_array_equal(out.numpy()[want != 0], want[want != 0])
+    mask = out.numpy() != 0
+    np.testing.assert_array_equal(out.numpy()[mask], x[mask])
+
+
+def test_blocks_are_cut_per_node():
+    """Node i's result equals compressing node i alone (no block straddles
+    two nodes), and equals the reference's vmapped compressor."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(3, 5, 41)).astype(np.float32)  # 205 values a node
+    xt = torch.from_numpy(x)
+    out = block_topk_nodes(xt, ratio=0.2, block=128)
+    for i in range(3):
+        np.testing.assert_array_equal(out[i].numpy(), block_topk(xt[i], 0.2, 128).numpy())
+    want = np.asarray(
+        j_compress_stacked(JKernelBlockTopK(ratio=0.2, block=128), jax.random.PRNGKey(0), jnp.asarray(x))
+    )
+    np.testing.assert_array_equal(out.numpy(), want)
+    np.testing.assert_array_equal(KernelBlockTopK(0.2, 128).compress_nodes(xt).numpy(), want)
+
+
+def test_kernel_compressor_contractive():
+    comp = KernelBlockTopK(ratio=0.25, block=128)
+    rng = np.random.default_rng(2)
+    for _ in range(5):
+        x = torch.from_numpy(rng.normal(size=(777,)).astype(np.float32))
+        q = comp(x)
+        r = float(torch.sum((q - x) ** 2) / torch.sum(x**2))
+        assert r <= 1.0 - comp.delta + 1e-5
+
+
+def test_topk_wrapper_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        block_topk_kernel(torch.zeros((2, 100)), 4)
+    with pytest.raises(TypeError):
+        block_topk_kernel(torch.zeros((2, 128), dtype=torch.float64), 4)
+    with pytest.raises(ValueError):
+        pack_sparse_blocks(torch.zeros((2, 128)), 0, 128)
+    with pytest.raises(TypeError):
+        unpack_sparse_blocks(torch.zeros((2, 128)), torch.zeros((2, 128), dtype=torch.int64), 128)
