@@ -12,16 +12,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    card (bit-exact), timed (device time by torch.profiler, call time by CUDA
    events) beside its memory bound and, where one exists, a PyTorch library
    call computing the same function;
-4. main path: synchronous C2DFB on the 20 Newsgroups-width coefficient-tuning
-   task (p = 101,631, c = 20, m = 10 nodes on a ring, label skew 0.8,
-   n = 2,000 synthetic documents), K = 10, kernel_topk, T = 3 rounds; block
-   top-k must launch exactly 4*K*T times; then one more round is timed and
-   profiled (device busy share, device time by kernel);
-5. wire bytes: round_wire_bytes_measured on the final state (the pack kernel
-   launches 4*m times); every block-sparse payload equals the sparse codec's
-   byte string and the unpack kernel decodes every pack back;
-6. small input: the same algorithm on a small task through the kernels and
-   through the plain versions on the host, which must agree.
+4. main paths: synchronous C2DFB on the 20 Newsgroups-width coefficient-
+   tuning task (p = 101,631, c = 20, m = 10 nodes on a ring, label skew 0.8,
+   n = 2,000 synthetic documents), K = 10, T = 3 rounds, once with
+   kernel_topk (block top-k must launch exactly 4*K*T times) and once with
+   kernel_quant on a torch.Generator (the quantizer must launch 4*K*T times
+   and every round must meter 417,834,480 bytes); after each, one more
+   round is timed and profiled (device busy share, device time by kernel);
+5. wire bytes: round_wire_bytes_measured on each final state.  kernel_topk:
+   the pack kernel launches 4*m times, every block-sparse payload equals the
+   sparse codec's byte string and the unpack kernel decodes every pack
+   back.  kernel_quant: the inner bytes are 409,704,000 and every quant
+   payload re-encodes to itself and decodes within 1 ulp;
+6. baselines at the same width, 2 rounds each: MDBO, MADSBO, C2DFB-nc with
+   kernel_quant (the quantizer launches 4*K a round) and F2SA;
+7. small input: C2DFB with kernel_topk and with kernel_quant on a small
+   task through the kernels and through the plain versions on the host,
+   which must agree (the quantizer runs share their samples).
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -35,6 +42,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 
@@ -45,7 +53,21 @@ TOL = dict(rtol=1e-4, atol=1e-6)
 # main-path configuration: the paper's coefficient-tuning width (20 Newsgroups)
 TASK = dict(m=10, n=2000, p=101631, c=20, h=0.8, seed=0)
 CFG = dict(K=10, compressor="kernel_topk", comp_ratio=0.2, comp_block=1024)
+CFG_QUANT = dict(K=10, compressor="kernel_quant", comp_bits=4, comp_block=1024)
 T = 3
+BASELINE_ROUNDS = 2
+
+
+def quant_round_bytes() -> tuple[int, int]:
+    """(inner, total) bytes a kernel_quant round puts on the wire at TASK:
+    2 loops x K steps x 2 messages x m nodes, each message a quant header
+    (10 B), nb f32 scales and the bit-packed codes; plus the dense x and s_x
+    broadcasts."""
+    m, p, c = TASK["m"], TASK["p"], TASK["c"]
+    d, bits, block = p * c, CFG_QUANT["comp_bits"], CFG_QUANT["comp_block"]
+    message = 10 + 4 * -(-d // block) + -(-d * bits // 8)
+    inner = 2 * CFG_QUANT["K"] * 2 * m * message
+    return inner, inner + 2 * p * 4 * m
 
 
 def fail(msg: str) -> None:
@@ -226,32 +248,91 @@ def phase_kernels(dev) -> dict:
         library="torch.zeros().scatter_add_ into a sentinel column",
     )
     print(f"[kernels] unpack_sparse_blocks: {res['unpack_sparse_blocks']}")
+    res["quantize"] = kernel_quantize(dev, x, gen)
     return res
 
 
-def phase_main_path(dev):
-    from repro_torch.core.c2dfb import C2DFBConfig, run
-    from repro_torch.core.topology import ring
+def kernel_quantize(dev, x, gen) -> dict:
+    """B4 at the main path's launch shape (bits 4), bits 2 and 8 on a slice,
+    a NaN row and an all-zero row; each bit for bit against quantize_ref."""
+    from repro_torch.kernels.quantize import quantize_kernel
+    from repro_torch.kernels.ref import quantize_ref
+
+    rows, block = x.shape
+    bits_main = CFG_QUANT["comp_bits"]
+    u = torch.rand(x.shape, generator=gen, device=dev)
+    small = slice(0, 2048)
+    edge = x[:4].clone()
+    edge[0, 7] = float("nan")
+    edge[1] = 0.0
+    for what, xin, uin, b in (
+        (f"({rows}, {block}) bits {bits_main}", x, u, bits_main),
+        ("(2048, 1024) bits 2", x[small], u[small], 2),
+        ("(2048, 1024) bits 8", x[small], u[small], 8),
+        ("NaN and zero rows bits 4", edge, u[:4].contiguous(), 4),
+    ):
+        got, scales = quantize_kernel(xin, uin, b)
+        want, wscales = quantize_ref(xin, uin, b)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        check(torch.equal(torch.isnan(got), nan), f"quantize {what}: NaN positions differ")
+        check(torch.equal(bits(got[~nan]), bits(want[~nan])), f"quantize {what} differs from its plain version")
+        check(torch.equal(bits(scales.nan_to_num()), bits(wscales.nan_to_num())), f"quantize {what}: scales differ")
+        print(f"[kernels] quantize {what}: bit-exact against quantize_ref")
+    got, _ = quantize_kernel(x, u, bits_main)
+    want, _ = quantize_ref(x, u, bits_main)
+    kt = timed(lambda: quantize_kernel(x, u, bits_main))
+    draw = timed(lambda: torch.rand(x.shape, generator=gen, device=dev))
+    res = dict(
+        name="quantize", route="cuda", ok=True,
+        source="src/repro_torch/kernels/csrc/quantize.cu",
+        replaces="src/repro/kernels/quantize.py:43",
+        shape=[rows, block], bits=bits_main,
+        max_abs_err=float((got - want).abs().max()),
+        ms=kt["ms"], call_ms=kt["call_ms"], timer=kt["timer"],
+        plain_ms=timed(lambda: quantize_ref(x, u, bits_main), iters=5)["ms"],
+        # read x and u, write out and the (rows,) scales
+        bound_ms=bound_ms(3 * x.numel() * 4 + rows * 4),
+        bound_by="bytes", library_ms=None,
+        library="none: no single PyTorch call computes it",
+        # the U[0,1) draw the kernel is fed (torch.rand, outside the kernel)
+        rand_ms=draw["ms"], rand_call_ms=draw["call_ms"], rand_bound_ms=bound_ms(x.numel() * 4),
+    )
+    print(f"[kernels] quantize: {res}")
+    return res
+
+
+def build_task(dev):
     from repro_torch.data.bilevel_tasks import coefficient_tuning_task
-    from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     bundle = coefficient_tuning_task(**TASK, device=dev)
     torch.cuda.synchronize()
     print(f"[main] task built in {time.perf_counter() - t0:.3f} s: "
           f"y {tuple(bundle.y0.shape)}, train a {tuple(bundle.problem.data_g['a'].shape)}")
-    topo, cfg = ring(TASK["m"]), C2DFBConfig(**CFG)
+    return bundle
 
+
+def phase_main_path(dev, bundle, cfg_kw: dict, kernel: str, generator=None):
+    """T rounds of `run` with ``cfg_kw``; ``kernel`` (a launch counter) must
+    count exactly 4*K*T launches.  Returns the final state, config, topology
+    and that count."""
+    from repro_torch.core.c2dfb import C2DFBConfig, run
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import _build
+
+    topo, cfg = ring(TASK["m"]), C2DFBConfig(**cfg_kw)
+    tag = f"[main {cfg.compressor}]"
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    state, mets = run(bundle.problem, topo, cfg, bundle.x0, bundle.y0, T=T, device=dev)
+    state, mets = run(bundle.problem, topo, cfg, bundle.x0, bundle.y0, T=T, generator=generator, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _build.launch_counts()
-    print(f"[main] {T} rounds in {wall!r} s ({wall / T!r} s a round on average), launches {counts}, "
+    print(f"{tag} {T} rounds in {wall!r} s ({wall / T!r} s a round on average), launches {counts}, "
           f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
-    check(counts["block_topk"] == 4 * cfg.K * T, f"block_topk launched {counts['block_topk']} times, want {4 * cfg.K * T}")
+    check(counts[kernel] == 4 * cfg.K * T, f"{kernel} launched {counts[kernel]} times, want {4 * cfg.K * T}")
     for k, v in mets.items():
         check(v.shape[0] == T, f"metric {k} has shape {tuple(v.shape)}")
         check(bool(torch.isfinite(v.double()).all()), f"metric {k} is not finite: {v}")
@@ -259,25 +340,29 @@ def phase_main_path(dev):
         check(bool(torch.isfinite(leaf).all()), "state holds non-finite values")
     check(tuple(state.inner_y.d.shape) == (TASK["m"], TASK["p"], TASK["c"]), "y has the wrong shape")
     for t in range(T):
-        print(f"[main] round {t}: hypergrad_norm {float(mets['hypergrad_norm'][t])!r} "
+        print(f"{tag} round {t}: hypergrad_norm {float(mets['hypergrad_norm'][t])!r} "
               f"measured_bytes {int(mets['measured_bytes'][t])} "
               f"x_consensus_err {float(mets['x_consensus_err'][t])!r}")
-    profile_round(bundle.problem, topo, cfg, state)
-    return state, cfg, topo, counts["block_topk"], wall
+    if cfg.compressor == "kernel_quant":
+        want = quant_round_bytes()[1]
+        check(all(int(b) == want for b in mets["measured_bytes"]), f"measured_bytes {mets['measured_bytes'].tolist()}, want {want}")
+    profile_round(bundle.problem, topo, cfg, state, generator, tag)
+    return state, cfg, topo, counts[kernel]
 
 
-def profile_round(problem, topo, cfg, state) -> None:
+def profile_round(problem, topo, cfg, state, generator, tag) -> None:
     """One more round from the final state (outside the counted run): its
     host wall time, then a device profile of a second one — device busy
     share and the device time by kernel name."""
     from repro_torch.core.c2dfb import c2dfb_round
 
+    tag = tag.replace("[main", "[round")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    c2dfb_round(state, None, problem, topo, cfg)
+    c2dfb_round(state, generator, problem, topo, cfg)
     torch.cuda.synchronize()
-    print(f"[round] steady-state round wall {time.perf_counter() - t0!r} s")
-    events, wall = device_window(lambda: c2dfb_round(state, None, problem, topo, cfg), 1)
+    print(f"{tag} steady-state round wall {time.perf_counter() - t0!r} s")
+    events, wall = device_window(lambda: c2dfb_round(state, generator, problem, topo, cfg), 1)
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
     for a, b in spans:  # union of device intervals, in microseconds
@@ -290,10 +375,10 @@ def profile_round(problem, topo, cfg, state) -> None:
         acc[0] += e.time_range.elapsed_us()
         acc[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    print(f"[round] profiled round: wall {wall!r} s, device busy {busy / 1e6!r} s "
+    print(f"{tag} profiled round: wall {wall!r} s, device busy {busy / 1e6!r} s "
           f"({busy / 1e6 / wall:.3f} of the wall), {len(events)} device activities")
     for name, (us, n) in top:
-        print(f"[round]   {us / 1e3:10.3f} ms  {n:5d}x  {name[:90]}")
+        print(f"{tag}   {us / 1e3:10.3f} ms  {n:5d}x  {name[:90]}")
 
 
 def phase_wire(state, cfg, topo):
@@ -336,28 +421,148 @@ def phase_wire(state, cfg, topo):
     return pack_launches, counts["unpack_sparse_blocks"]
 
 
+def phase_wire_quant(state, cfg, topo, generator):
+    """kernel_quant's wire: the measured inner bytes, and every quant payload
+    of one round's messages re-encodes to itself and decodes within 1 ulp
+    of the grid (atol max|q| * 2^-21, the reference's contract)."""
+    from repro_torch.core.c2dfb import round_wire_bytes_measured
+    from repro_torch.core.inner_loop import inner_transmit
+    from repro_torch.net.wire import QuantCodec, codec_for
+
+    m = topo.m
+    t0 = time.perf_counter()
+    wire = round_wire_bytes_measured(state, cfg, topo, generator)
+    print(f"[wire kernel_quant] round_wire_bytes_measured {wire} in {time.perf_counter() - t0:.3f} s")
+    inner_want = quant_round_bytes()[0]
+    check(wire["inner_bytes"] == inner_want, f"inner_bytes {wire['inner_bytes']}, want {inner_want}")
+
+    comp = cfg.make_compressor()
+    codec = codec_for(comp)
+    check(isinstance(codec, QuantCodec) and codec.block == cfg.comp_block, "kernel_quant must pair with QuantCodec")
+    inner, exact, worst = 0, 0, 0.0
+    t0 = time.perf_counter()
+    for inner_state in (state.inner_y, state.inner_z):
+        for a, b in ((inner_state.d, inner_state.d_hat), (inner_state.s, inner_state.s_hat)):
+            q = inner_transmit(comp, generator, a, b)
+            for i in range(m):
+                qi = q[i].reshape(-1).cpu().numpy()
+                payload = codec.encode(qi)
+                back = codec.decode(payload)
+                check(codec.encode(back) == payload, f"quant payload of node {i} does not re-encode to itself")
+                err = float(np.abs(back - qi).max())
+                check(err <= float(np.abs(qi).max()) * 2.0**-21, f"node {i}: decoded values {err} off the grid")
+                exact += int(np.array_equal(back, qi))
+                worst = max(worst, err)
+                inner += len(payload)
+    check(inner * cfg.K == wire["inner_bytes"], "payload bytes disagree with round_wire_bytes_measured")
+    print(f"[wire kernel_quant] {4 * m} payloads round-trip in {time.perf_counter() - t0:.3f} s; "
+          f"{exact} of {4 * m} decode bit-exact, largest decode error {worst!r}")
+
+
+def phase_baselines(dev, bundle):
+    """The paper's baselines at TASK's width, BASELINE_ROUNDS rounds each:
+    finite metrics; C2DFB-nc with kernel_quant launches 4*K quantizers a
+    round.  Prints each round's wall time and each baseline's bytes a round."""
+    from repro_torch.core import baselines as B
+    from repro_torch.core.c2dfb import C2DFBConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.core.types import node_mean, tree_count, tree_leaves
+    from repro_torch.kernels import _build
+    from repro_torch.net.wire import scan_tree_bytes
+
+    problem, topo, m = bundle.problem, ring(TASK["m"]), TASK["m"]
+    nc_cfg = C2DFBConfig(**CFG_QUANT)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mdbo_cfg, madsbo_cfg, f2sa_cfg = B.MDBOConfig(), B.MADSBOConfig(), B.F2SAConfig()
+    runs = {
+        "mdbo": (B.mdbo_init(bundle.x0, bundle.y0), lambda st: B.mdbo_round(st, problem, topo, mdbo_cfg)),
+        "madsbo": (B.madsbo_init(problem, bundle.x0, bundle.y0),
+                   lambda st: B.madsbo_round(st, problem, topo, madsbo_cfg)),
+        "c2dfb_nc": (B.c2dfb_nc_init(problem, nc_cfg, bundle.x0, bundle.y0),
+                     lambda st: B.c2dfb_nc_round(st, gen, problem, topo, nc_cfg)),
+        "f2sa": (B.f2sa_init(node_mean(bundle.x0), node_mean(bundle.y0)),
+                 lambda st: B.f2sa_round(st, problem, f2sa_cfg)),
+    }
+    launches = 0
+    for name, (state, step) in runs.items():
+        _build.reset_launch_counts()
+        for r in range(BASELINE_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, mets = step(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for k, v in mets.items():
+                check(bool(torch.isfinite(v.double()).all()), f"{name} metric {k} is not finite: {v}")
+            print(f"[baselines] {name} round {r}: wall {wall!r} s, hypergrad_norm {float(mets['hypergrad_norm'])!r}")
+        for leaf in tree_leaves(state.x) + tree_leaves(state.y if name != "c2dfb_nc" else state.inner_y.d):
+            check(bool(torch.isfinite(leaf).all()), f"{name} state holds non-finite values")
+        counts = _build.launch_counts()
+        if name == "mdbo":
+            nbytes = B.mdbo_round_wire_bytes(state, mdbo_cfg, topo)
+        elif name == "madsbo":
+            nbytes = B.madsbo_round_wire_bytes(state, madsbo_cfg, topo)
+        elif name == "c2dfb_nc":
+            want = 4 * nc_cfg.K * BASELINE_ROUNDS
+            check(counts["quantize"] == want, f"c2dfb_nc launched the quantizer {counts['quantize']} times, want {want}")
+            launches = counts["quantize"]
+            # quant messages are shape-static: 2 loops x K steps x 2 messages,
+            # plus the dense x and s_x broadcasts
+            nbytes = 4 * nc_cfg.K * int(scan_tree_bytes(nc_cfg.make_compressor(), state.inner_y.d))
+            nbytes += 2 * tree_count(state.x) * 4 * m
+        else:
+            nbytes = "none (centralized: no gossip)"
+        print(f"[baselines] {name}: bytes a round {nbytes}, launches {counts}")
+    return launches
+
+
+class HostDraws:
+    """A random source that draws on the host from a seeded CPU generator
+    and copies to the run's device, so a card run and a host run share
+    their samples."""
+
+    def __init__(self, seed: int):
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def uniform(self, shape, device):
+        return torch.rand(shape, generator=self.gen).to(device)
+
+    def choice(self, n, k, device):
+        return torch.randperm(n, generator=self.gen)[:k].to(device)
+
+
+# the samples of the small kernel_quant run: of seeds 0-99 the one whose
+# smallest distance between a sample and its rounding threshold is largest
+# on the host, 5.9e-5 (quantization is discontinuous; card and host sum in
+# another order, so a sample near its threshold could round differently)
+SMALL_QUANT_SEED = 29
+
+
 def phase_small_input(dev):
     """The algorithm through the kernels (card) and through the plain
-    versions (host) on one small input: the two must agree."""
+    versions (host) on one small input, with kernel_topk and with
+    kernel_quant (shared samples): the two must agree."""
     from repro_torch.core.c2dfb import C2DFBConfig, run
     from repro_torch.core.topology import ring
     from repro_torch.core.types import tree_leaves
     from repro_torch.data.bilevel_tasks import coefficient_tuning_task
 
     task = dict(m=4, n=200, p=64, c=4, seed=0)
-    cfg = C2DFBConfig(K=3, compressor="kernel_topk", comp_ratio=0.2, comp_block=128)
-    out = {}
-    for d in ("cpu", dev):
-        b = coefficient_tuning_task(**task, device=d)
-        out[d] = run(b.problem, ring(4), cfg, b.x0, b.y0, T=3, device=d)
-    (sc, mc), (sg, mg) = out["cpu"], out[dev]
-    for what, a, b in (("x", sc.x, sg.x), ("s_x", sc.s_x, sg.s_x), ("y", sc.inner_y.d, sg.inner_y.d),
-                       ("z", sc.inner_z.d, sg.inner_z.d)):
-        for la, lb in zip(tree_leaves(a), tree_leaves(b)):
-            check(torch.allclose(lb.cpu(), la, **TOL), f"small input: {what} differs between card and host")
-    check(torch.equal(mc["measured_bytes"], mg["measured_bytes"].cpu()), "small input: measured_bytes differ")
-    print(f"[small] card and host agree (rtol {TOL['rtol']}, atol {TOL['atol']}); "
-          f"measured_bytes {mc['measured_bytes'].tolist()}")
+    for cfg in (C2DFBConfig(K=3, compressor="kernel_topk", comp_ratio=0.2, comp_block=128),
+                C2DFBConfig(K=3, compressor="kernel_quant", comp_bits=4, comp_block=128)):
+        out = {}
+        for d in ("cpu", dev):
+            b = coefficient_tuning_task(**task, device=d)
+            out[d] = run(b.problem, ring(4), cfg, b.x0, b.y0, T=3, generator=HostDraws(SMALL_QUANT_SEED), device=d)
+        (sc, mc), (sg, mg) = out["cpu"], out[dev]
+        for what, a, b in (("x", sc.x, sg.x), ("s_x", sc.s_x, sg.s_x), ("y", sc.inner_y.d, sg.inner_y.d),
+                           ("z", sc.inner_z.d, sg.inner_z.d)):
+            for la, lb in zip(tree_leaves(a), tree_leaves(b)):
+                check(torch.allclose(lb.cpu(), la, **TOL), f"small input {cfg.compressor}: {what} differs between card and host")
+        check(torch.equal(mc["measured_bytes"], mg["measured_bytes"].cpu()),
+              f"small input {cfg.compressor}: measured_bytes differ")
+        print(f"[small] {cfg.compressor}: card and host agree (rtol {TOL['rtol']}, atol {TOL['atol']}); "
+              f"measured_bytes {mc['measured_bytes'].tolist()}")
 
 
 def main() -> int:
@@ -386,15 +591,21 @@ def main() -> int:
 
     # 3. kernels at main-path shapes
     kernels = phase_kernels(dev)
-    # 4. main path
-    state, cfg, topo, topk_launches, _ = phase_main_path(dev)
-    kernels["block_topk"]["launches"] = topk_launches
-    # 5. wire bytes through pack / unpack
+    # 4. main paths: kernel_topk, then kernel_quant on the same task
+    bundle = build_task(dev)
+    state, cfg, topo, kernels["block_topk"]["launches"] = phase_main_path(dev, bundle, CFG, "block_topk")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qstate, qcfg, _, kernels["quantize"]["launches"] = phase_main_path(dev, bundle, CFG_QUANT, "quantize", gen)
+    # 5. wire bytes through pack / unpack, and through the quant codec
     pack_launches, unpack_launches = phase_wire(state, cfg, topo)
     kernels["pack_sparse_blocks"]["launches"] = pack_launches
     kernels["unpack_sparse_blocks"]["launches"] = unpack_launches
-    del state
-    # 6. small input, card against host
+    phase_wire_quant(qstate, qcfg, topo, gen)
+    del state, qstate
+    # 6. the paper's baselines at full width
+    kernels["quantize"]["c2dfb_nc_launches"] = phase_baselines(dev, bundle)
+    del bundle
+    # 7. small input, card against host
     phase_small_input(dev)
 
     print(json.dumps({"kernels": list(kernels.values())}))

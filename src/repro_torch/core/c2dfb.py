@@ -13,7 +13,10 @@ inner-loop traffic is compressed residuals.  The round metrics carry the
 exact wire bytes (``measured_bytes``), counted on the device.
 
 ``run`` is a Python loop over T rounds on one device (``cuda`` unless the
-caller passes ``device="cpu"``).  The fabric, schedule, async, transport and
+caller passes ``device="cpu"``).  Every entry point takes ``generator``,
+the random source of a stochastic compressor (a ``torch.Generator`` on the
+run's device, or a source object); draws follow the order written down in
+`repro_torch.core.compression`, and deterministic compressors ignore it.  The fabric, schedule, async, transport and
 telemetry arguments of the reference wait for later slices of the port.
 """
 
@@ -107,7 +110,7 @@ def _mixing_matrix(topo: Topology, like: Tree) -> torch.Tensor:
 
 def c2dfb_round_core(
     state: C2DFBState,
-    generator: torch.Generator | None,
+    generator,
     problem: BilevelProblem,
     W: torch.Tensor,
     cfg: C2DFBConfig,
@@ -164,7 +167,7 @@ def c2dfb_round_core(
 
 def c2dfb_round(
     state: C2DFBState,
-    generator: torch.Generator | None,
+    generator,
     problem: BilevelProblem,
     topo: Topology,
     cfg: C2DFBConfig,
@@ -181,7 +184,7 @@ def c2dfb_round(
 
 
 def round_wire_bytes_measured(
-    state: C2DFBState, cfg: C2DFBConfig, topo: Topology, generator: torch.Generator | None = None
+    state: C2DFBState, cfg: C2DFBConfig, topo: Topology, generator=None
 ) -> dict:
     """Exact integer bytes per outer round, serialized by the wire codec
     (`repro_torch.net.wire`) instead of the analytic `round_wire_bytes`
@@ -228,7 +231,7 @@ def run(
     x0: Tree,
     y0: Tree,
     T: int,
-    generator: torch.Generator | None = None,
+    generator=None,
     device: str | torch.device | None = None,
 ) -> tuple[C2DFBState, dict]:
     """Run T synchronous outer rounds; returns the final state and the

@@ -1,11 +1,13 @@
 """Carry arrays and states across from the JAX reference.
 
 ``from_numpy(tree, device)`` turns numpy (or any ``np.asarray``-able, e.g.
-JAX) arrays, dicts of them, and ``C2DFBState`` / ``InnerState`` shaped
-tuples from the reference into the port's tensors and states, so a test
-can start both packages from the same x0, y0 or mid-run state.  States are
-recognized by their field names; this module imports nothing of the
-reference.  ``to_numpy`` goes the other way for comparisons.
+JAX) arrays, dicts of them, and the reference's state tuples (C2DFB's
+``C2DFBState`` / ``InnerState`` and the baselines' ``MDBOState``,
+``MADSBOState``, ``NCInnerState``, ``C2DFBncState``, ``F2SAState``) into the
+port's tensors and states, so a test can start both packages from the same
+x0, y0 or mid-run state.  States are recognized by their class and field
+names (C2DFBState and C2DFBncState share their fields); this module imports
+nothing of the reference.  ``to_numpy`` goes the other way for comparisons.
 """
 
 from __future__ import annotations
@@ -13,9 +15,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import C2DFBncState, F2SAState, MADSBOState, MDBOState, NCInnerState
 from repro_torch.core.c2dfb import C2DFBState
 from repro_torch.core.inner_loop import InnerState
 from repro_torch.core.types import Tree, tree_map
+
+_STATES = {
+    (cls.__name__, cls._fields): cls
+    for cls in (C2DFBState, InnerState, MDBOState, MADSBOState, NCInnerState, C2DFBncState, F2SAState)
+}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -28,18 +36,11 @@ def _tensor(a, device) -> torch.Tensor:
 
 def from_numpy(tree, device: str | torch.device = "cpu"):
     """Reference arrays / dicts / states -> the port's tensors / states."""
-    fields = getattr(type(tree), "_fields", None)
-    if fields == C2DFBState._fields:
-        return C2DFBState(
-            x=from_numpy(tree.x, device),
-            s_x=from_numpy(tree.s_x, device),
-            u_prev=from_numpy(tree.u_prev, device),
-            inner_y=from_numpy(tree.inner_y, device),
-            inner_z=from_numpy(tree.inner_z, device),
-            t=int(np.asarray(tree.t)),
-        )
-    if fields == InnerState._fields:
-        return InnerState(*(from_numpy(v, device) for v in tree))
+    cls = _STATES.get((type(tree).__name__, getattr(type(tree), "_fields", None)))
+    if cls is not None:
+        return cls(*(
+            int(np.asarray(v)) if f == "t" else from_numpy(v, device) for f, v in zip(cls._fields, tree)
+        ))
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
     return _tensor(tree, device)

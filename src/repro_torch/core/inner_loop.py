@@ -48,9 +48,10 @@ class InnerState(NamedTuple):
 
 
 def compress_stacked(
-    compressor: Compressor, generator: torch.Generator | None, tree: Tree
+    compressor: Compressor, generator, tree: Tree
 ) -> Tree:
-    """Apply Q per node to every leaf of a node-stacked tree."""
+    """Apply Q per node to every leaf of a node-stacked tree, leaves in
+    sorted-key order (one ``compress_nodes`` call, so one draw, a leaf)."""
     return tree_map(lambda leaf: compressor.compress_nodes(leaf, generator), tree)
 
 
@@ -71,7 +72,7 @@ def refresh_tracker(state: InnerState, grad_fn) -> InnerState:
 
 
 def inner_transmit(
-    compressor: Compressor, generator: torch.Generator | None, value: Tree, ref: Tree
+    compressor: Compressor, generator, value: Tree, ref: Tree
 ) -> Tree:
     """The transmit half of a step: the compressed residual ``Q(value - ref)``,
     the per-edge message payload."""
@@ -81,7 +82,7 @@ def inner_transmit(
 
 def inner_apply(
     state: InnerState,
-    generator: torch.Generator | None,
+    generator,
     grad_fn: Callable[[Tree], Tree],
     compressor: Compressor,
     gamma: float,
@@ -114,7 +115,7 @@ def inner_apply(
 
 def inner_step(
     state: InnerState,
-    generator: torch.Generator | None,
+    generator,
     grad_fn: Callable[[Tree], Tree],
     W: torch.Tensor,
     compressor: Compressor,
@@ -130,7 +131,7 @@ def inner_step(
 
 def inner_loop(
     state: InnerState,
-    generator: torch.Generator | None,
+    generator,
     grad_fn: Callable[[Tree], Tree],
     W: torch.Tensor,
     compressor: Compressor,
@@ -164,7 +165,7 @@ def inner_loop(
 
 
 def inner_message_bytes(
-    state: InnerState, compressor: Compressor, generator: torch.Generator | None = None
+    state: InnerState, compressor: Compressor, generator=None
 ) -> tuple[list[int], list[int]]:
     """Exact per-node wire bytes of one inner step's two transmissions,
     measured by serializing Q(d - d_hat) and Q(s - s_hat) with the codec

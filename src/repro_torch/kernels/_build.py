@@ -49,9 +49,12 @@ SIGNATURES = {
         "pack_sparse_blocks_f32": (_P, _P, _P, _I, _I, _I, _P),
         "unpack_sparse_blocks_f32": (_P, _P, _P, _I, _I, _I, _P),
     },
+    "quantize": {
+        "quantize_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
-LAUNCHES = {"block_topk": 0, "pack_sparse_blocks": 0, "unpack_sparse_blocks": 0}
+LAUNCHES = {"block_topk": 0, "pack_sparse_blocks": 0, "unpack_sparse_blocks": 0, "quantize": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.quantize import quantize_kernel
 from repro_torch.kernels.topk_compress import block_topk_kernel
 
 
@@ -42,3 +43,21 @@ def block_topk_nodes(x: torch.Tensor, ratio: float = 0.2, block: int = 1024) -> 
 def block_topk(x: torch.Tensor, ratio: float = 0.2, block: int = 1024) -> torch.Tensor:
     """Kernel-backed contractive block top-k compressor (any input shape)."""
     return block_topk_nodes(x.unsqueeze(0), ratio, block).squeeze(0)
+
+
+def quantize_nodes(x: torch.Tensor, u: torch.Tensor, bits: int = 4, block: int = 1024) -> torch.Tensor:
+    """Kernel-backed stochastic quantizer of every node's copy of a
+    node-stacked leaf (dequantized output).  ``u`` holds the U[0,1) samples
+    of the (m * nb, block) tiles, node-major.  The zero-padded tail of a
+    node's last block quantizes to nonzero grid points (2^bits - 1 levels
+    put no point on zero); ``from_blocks`` slices it off, as the reference
+    does."""
+    tiles, d = to_blocks(x, block)
+    out, _ = quantize_kernel(tiles, u, bits)
+    return from_blocks(out, d, x)
+
+
+def quantize(x: torch.Tensor, u: torch.Tensor, bits: int = 4, block: int = 1024) -> torch.Tensor:
+    """Kernel-backed stochastic quantizer of one leaf (any input shape);
+    ``u`` holds the samples of its (nb, block) tiles."""
+    return quantize_nodes(x.unsqueeze(0), u, bits, block).squeeze(0)

@@ -1,10 +1,11 @@
-"""Plain PyTorch version of the block top-k kernel (``repro.kernels.ref``'s
-``block_topk_ref``).
+"""Plain PyTorch versions of the compression kernels (``repro.kernels.ref``'s
+``block_topk_ref`` and ``quantize_ref``).
 
-It defines the EXACT semantics the CUDA kernel in ``csrc/topk_compress.cu``
-reproduces bit for bit, including the threshold-bisection selection rule.
-The bisection runs in the input dtype: for bf16 input, ``lo + hi`` and
-``mid`` are rounded to bf16 every round, as the reference computes.
+They define the EXACT semantics the CUDA kernels in ``csrc/topk_compress.cu``
+and ``csrc/quantize.cu`` reproduce bit for bit.  The top-k bisection runs in
+the input dtype: for bf16 input, ``lo + hi`` and ``mid`` are rounded to bf16
+every round, as the reference computes.  The quantizer is computed op by
+op, each op rounding once, as the reference's jnp oracle is.
 """
 
 from __future__ import annotations
@@ -35,3 +36,26 @@ def block_topk_ref(x2d: torch.Tensor, k: int) -> torch.Tensor:
         hi = torch.where(take, hi, mid)
     mask = ax >= lo
     return x2d * mask.to(x2d.dtype)
+
+
+def quantize_ref(
+    x2d: torch.Tensor, u2d: torch.Tensor, bits: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row-scaled stochastic uniform quantization.
+
+    u2d are iid U[0,1) samples (same shape as x2d).  Returns the dequantized
+    array plus the (nb, 1) per-row scales (what a deployment would transmit
+    along with the packed codes).  A row holding NaN has a NaN scale and
+    comes out all NaN, as ``jnp.max`` propagates it.
+    """
+    # a tensor on x's device, so CUDA divides by it (it multiplies by the
+    # reciprocal of a host scalar, which rounds differently)
+    levels = torch.tensor((1 << bits) - 1, dtype=x2d.dtype, device=x2d.device)
+    floor = torch.tensor(1e-12, dtype=x2d.dtype, device=x2d.device)
+    scale = torch.maximum(torch.amax(torch.abs(x2d), dim=-1, keepdim=True), floor)
+    y = x2d / scale  # [-1, 1]
+    steps = (y + 1.0) * 0.5 * levels
+    lo = torch.floor(steps)
+    q = lo + (u2d < (steps - lo)).to(x2d.dtype)
+    deq = (q / levels) * 2.0 - 1.0
+    return deq * scale, scale

@@ -1,7 +1,8 @@
 """Synchronous C2DFB in the port against a LIVE run of the JAX reference
 (never against tests/golden/*.npz, whose y0 draw drifts with jax's threefry
 setting): the golden-sync configuration, kernel_topk with real selection,
-hyper-representation, and one round from a carried mid-run state.
+hyper-representation, the two quantizers fed the reference's own draws,
+and one round from a carried mid-run state.
 
 Floats agree within the golden tolerance (rtol 1e-4, atol 1e-6: BLAS
 reassociation); wire bytes and oracle counts are equal exactly."""
@@ -21,6 +22,8 @@ from repro_torch.core import types as ptypes
 from repro_torch.core.convert import from_numpy, to_numpy
 from repro_torch.data import bilevel_tasks as ptasks
 
+from _torch_replay import JaxReplay, record_quant_margins, run_leaf_keys, wire_leaf_keys
+
 RTOL, ATOL = 1e-4, 1e-6
 
 CASES = {
@@ -38,7 +41,25 @@ CASES = {
         "hyper", dict(m=4, n=200, side=6, hidden=8, c=4, h=0.5, seed=0),
         dict(K=3, compressor="topk", comp_ratio=0.3),
     ),
+    # stochastic quantizers on the reference's draws (replayed from KEYS)
+    "kernel_quant": (
+        "coef", dict(m=4, n=200, p=64, c=4, seed=0),
+        dict(K=3, compressor="kernel_quant", comp_bits=4, comp_block=128),
+    ),
+    "quant": (
+        "coef", dict(m=4, n=200, p=64, c=4, seed=0),
+        dict(K=3, compressor="quant", comp_bits=4),
+    ),
 }
+# Quantization is discontinuous: a code flips where the two runs' steps
+# straddle a sample, and the runs' steps differ by more than rounding (the
+# reference's fused epilogue and BLAS order, magnified where a residual is
+# small against its reference point).  Of keys 0-39, flips broke parity at
+# margins up to 3.4e-5; these keys have the largest smallest margin (6.5e-5
+# for kernel_quant, 5.4e-5 for quant) and no sample within 1e-5 of its
+# threshold, which test_trajectory_matches_reference asserts.
+KEYS = {"kernel_quant": 17, "quant": 15}
+STOCHASTIC = set(KEYS)
 BUILDERS = {
     "coef": (jtasks.coefficient_tuning_task, ptasks.coefficient_tuning_task),
     "hyper": (jtasks.hyper_representation_task, ptasks.hyper_representation_task),
@@ -71,6 +92,10 @@ def _assert_metrics_match(pm, jm):
             np.testing.assert_allclose(pm[k].cpu().numpy(), np.asarray(v), rtol=RTOL, atol=ATOL, err_msg=k)
 
 
+def _n_leaves(tree):
+    return len(ptypes.tree_leaves(tree))
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
     task, task_kw, cfg_kw = CASES[request.param]
@@ -78,13 +103,17 @@ def case(request):
     jb, pb = jbuild(**task_kw), pbuild(**task_kw, device="cpu")
     jcfg, pcfg = J.C2DFBConfig(**cfg_kw), P.C2DFBConfig(**cfg_kw)
     m = task_kw["m"]
-    js, jm = J.run(jb.problem, jtopo.ring(m), jcfg, jb.x0, jb.y0, T=T, key=jax.random.PRNGKey(0))
+    key = jax.random.PRNGKey(KEYS.get(request.param, 0))
+    js, jm = J.run(jb.problem, jtopo.ring(m), jcfg, jb.x0, jb.y0, T=T, key=key)
     x0, y0 = from_numpy(jb.x0), from_numpy(jb.y0)
     x0_copy = ptypes.tree_map(torch.clone, x0)
-    ps, pm = P.run(pb.problem, ptopo.ring(m), pcfg, x0, y0, T=T, device="cpu")
+    replay = JaxReplay(run_leaf_keys(key, T, pcfg.K, _n_leaves(y0)), m)
+    with pytest.MonkeyPatch.context() as mp:
+        margins = record_quant_margins(mp)
+        ps, pm = P.run(pb.problem, ptopo.ring(m), pcfg, x0, y0, T=T, generator=replay, device="cpu")
     return dict(
         name=request.param, jb=jb, pb=pb, jcfg=jcfg, pcfg=pcfg, m=m, js=js, jm=jm,
-        ps=ps, pm=pm, x0=x0, x0_copy=x0_copy,
+        ps=ps, pm=pm, x0=x0, x0_copy=x0_copy, margins=margins, replay=replay,
     )
 
 
@@ -93,12 +122,21 @@ def test_trajectory_matches_reference(case):
     _assert_metrics_match(case["pm"], case["jm"])
     for a, b in zip(ptypes.tree_leaves(case["x0"]), ptypes.tree_leaves(case["x0_copy"])):
         assert torch.equal(a, b)  # the caller's x0 survives the run
+    K = case["pcfg"].K
+    if case["name"] in STOCHASTIC:
+        assert case["replay"].draws == 4 * K * T  # one draw a leaf, one leaf a message
+        assert len(case["margins"]) == 4 * K * T
+        assert min(case["margins"]) > 1e-5, f"a sample lies {min(case['margins'])} from its threshold"
+    else:
+        assert case["replay"].draws == 0 and not case["margins"]
 
 
 def test_round_wire_bytes_equal_reference(case):
     m = case["m"]
-    jw = J.round_wire_bytes_measured(case["js"], case["jcfg"], jtopo.ring(m), jax.random.PRNGKey(1))
-    pw = P.round_wire_bytes_measured(case["ps"], case["pcfg"], ptopo.ring(m))
+    key = jax.random.PRNGKey(1)
+    jw = J.round_wire_bytes_measured(case["js"], case["jcfg"], jtopo.ring(m), key)
+    replay = JaxReplay(wire_leaf_keys(key, _n_leaves(case["ps"].x)), m)
+    pw = P.round_wire_bytes_measured(case["ps"], case["pcfg"], ptopo.ring(m), replay)
     assert pw == jw
     assert P.round_wire_bytes(case["ps"], case["pcfg"], ptopo.ring(m)) == J.round_wire_bytes(
         case["js"], case["jcfg"], jtopo.ring(m)
@@ -109,7 +147,7 @@ def test_oracle_counts_per_round(case):
     pb, pcfg = case["pb"], case["pcfg"]
     state = from_numpy(case["js"], "cpu")
     pb.problem.oracle_calls.clear()
-    P.c2dfb_round(state, None, pb.problem, ptopo.ring(case["m"]), pcfg)
+    P.c2dfb_round(state, torch.Generator().manual_seed(0), pb.problem, ptopo.ring(case["m"]), pcfg)
     want = {k: v for k, v in c2dfb_oracle_calls(pcfg).items() if v}
     assert pb.problem.oracle_calls == want == {"ul_grad": 3, "ll_grad": 2 * (pcfg.K + 1)}
 
@@ -140,3 +178,45 @@ def test_one_round_from_a_carried_mid_run_state():
     _assert_metrics_match(pm, jm)
     _assert_tree_close(ps.inner_y.d_hat, js.inner_y.d_hat, "y_hat")
     _assert_tree_close(ps.inner_z.s_hat, js.inner_z.s_hat, "z tracker ref")
+
+
+# ---------------------------------------------------------------- quantizer properties
+
+
+def _quadratic(m=8, d=300, seed=0):
+    """Per-node strongly-convex quadratics r_i(w) = 0.5||w - b_i||^2_{A_i}."""
+    rng = np.random.default_rng(seed)
+    Q = rng.normal(size=(m, d, 8))
+    A = torch.as_tensor(np.einsum("mij,mkj->mik", Q, Q) / 8 + 0.5 * np.eye(d), dtype=torch.float32)
+    b = torch.as_tensor(rng.normal(size=(m, d)), dtype=torch.float32)
+    return lambda w: torch.einsum("mij,mj->mi", A, w - b)
+
+
+def test_kernel_quant_keeps_eq7_and_tracking_under_a_torch_generator():
+    """With a plain torch.Generator (no replay), the mean dynamics stay
+    compression-free (Eq. 7) and the tracker mean equals the mean gradient
+    (Prop. 4), whatever the quantizer drew."""
+    from repro_torch.core.compression import KernelQuant
+    from repro_torch.core.inner_loop import inner_init, inner_step
+
+    m, d = 8, 300
+    grad_fn = _quadratic(m, d)
+    W = torch.as_tensor(ptopo.ring(m).W, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(5)
+    st = inner_init(torch.as_tensor(np.random.default_rng(1).normal(size=(m, d)), dtype=torch.float32), grad_fn)
+    eta, gamma, comp = 0.05, 0.5, KernelQuant(bits=4, block=128)
+    for _ in range(5):
+        d_bar, s_bar = ptypes.node_mean(st.d), ptypes.node_mean(st.s)
+        st = inner_step(st, gen, grad_fn, W, comp, gamma, eta)
+        np.testing.assert_allclose(ptypes.node_mean(st.d).numpy(), (d_bar - eta * s_bar).numpy(), atol=1e-5)
+        np.testing.assert_allclose(
+            ptypes.node_mean(st.s).numpy(), ptypes.node_mean(grad_fn(st.d)).numpy(), atol=1e-4
+        )
+        assert bool((st.d_hat != st.d).any())  # the references really are quantized
+
+
+def test_stochastic_run_without_a_generator_raises():
+    task, task_kw, cfg_kw = CASES["kernel_quant"]
+    pb = ptasks.coefficient_tuning_task(**task_kw, device="cpu")
+    with pytest.raises(ValueError, match="KernelQuant"):
+        P.run(pb.problem, ptopo.ring(4), P.C2DFBConfig(**cfg_kw), pb.x0, pb.y0, T=1, device="cpu")

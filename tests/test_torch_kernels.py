@@ -1,8 +1,9 @@
 """The port's kernel modules on the CPU: the plain versions of B1 (block
-top-k), B2 (pack) and B3 (unpack) against the Pallas kernels run in
-interpret mode and against the reference's jnp oracle, bit for bit; the
-wrappers' blocking per node, shapes and contraction.  The CUDA kernels
-themselves are held to these plain versions on the card by chip_smoke.py."""
+top-k), B2 (pack), B3 (unpack) and B4 (stochastic quantizer) against the
+Pallas kernels run in interpret mode and against the reference's jnp
+oracle, bit for bit; the wrappers' blocking per node, shapes and
+contraction.  The CUDA kernels themselves are held to these plain versions
+on the card by chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -11,21 +12,27 @@ import pytest
 import torch
 
 from repro.core.compression import KernelBlockTopK as JKernelBlockTopK
+from repro.core.compression import KernelQuant as JKernelQuant
 from repro.core.inner_loop import compress_stacked as j_compress_stacked
 from repro.kernels.ops import block_topk as j_block_topk
 from repro.kernels.pack_residuals import pack_sparse_blocks as j_pack
 from repro.kernels.pack_residuals import unpack_sparse_blocks as j_unpack
+from repro.kernels.quantize import quantize_pallas
 from repro.kernels.ref import block_topk_ref as j_block_topk_ref
+from repro.kernels.ref import quantize_ref as j_quantize_ref
 from repro.kernels.topk_compress import block_topk_pallas
-from repro_torch.core.compression import KernelBlockTopK
-from repro_torch.kernels.ops import block_topk, block_topk_nodes
+from repro_torch.core.compression import KernelBlockTopK, KernelQuant
+from repro_torch.kernels.ops import block_topk, block_topk_nodes, quantize, quantize_nodes
 from repro_torch.kernels.pack_residuals import (
     pack_sparse_blocks,
     padded_k,
     unpack_sparse_blocks,
 )
-from repro_torch.kernels.ref import block_topk_ref
+from repro_torch.kernels.quantize import quantize_kernel
+from repro_torch.kernels.ref import block_topk_ref, quantize_ref
 from repro_torch.kernels.topk_compress import block_topk_kernel
+
+from _torch_replay import JaxReplay, message_leaf_keys
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -179,3 +186,97 @@ def test_topk_wrapper_rejects_bad_shapes():
         pack_sparse_blocks(torch.zeros((2, 128)), 0, 128)
     with pytest.raises(TypeError):
         unpack_sparse_blocks(torch.zeros((2, 128)), torch.zeros((2, 128), dtype=torch.int64), 128)
+
+
+# ---------------------------------------------------------------- B4: quantizer
+
+
+def _quant_inputs(nb, block, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(nb, block)) * rng.uniform(0.01, 10.0, size=(nb, 1))).astype(np.float32)
+    u = rng.random((nb, block), dtype=np.float32)
+    return x, u
+
+
+@pytest.mark.parametrize("nb", [1, 5, 16])
+@pytest.mark.parametrize("block", [128, 1024])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_plain_matches_jnp_oracle_bit_for_bit(nb, block, bits):
+    x, u = _quant_inputs(nb, block, seed=nb * 31 + block + bits)
+    out, scales = quantize_kernel(torch.from_numpy(x), torch.from_numpy(u), bits)  # CPU: plain
+    rout, rscales = quantize_ref(torch.from_numpy(x), torch.from_numpy(u), bits)
+    assert scales.shape == (nb, 1) and out.dtype == torch.float32
+    np.testing.assert_array_equal(_torch_bits(out), _torch_bits(rout))
+    jout, jscales = j_quantize_ref(jnp.asarray(x), jnp.asarray(u), bits)
+    np.testing.assert_array_equal(_torch_bits(out), _bits(jout))
+    np.testing.assert_array_equal(_torch_bits(scales), _bits(jscales))
+
+
+@pytest.mark.parametrize("block", [128, 1024])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_plain_matches_pallas_within_an_ulp(block, bits):
+    """XLA fuses the interpret-mode kernel body and rounds its dequant
+    epilogue ((q / levels) * 2 - 1) * scale differently from the op-by-op
+    oracle, so values may differ by about one ulp of the scale (seen: up to
+    7.2e-7 relative); scales and codes are equal."""
+    x, u = _quant_inputs(16, block, seed=block + bits)
+    out, scales = quantize_kernel(torch.from_numpy(x), torch.from_numpy(u), bits)
+    pout, pscales = quantize_pallas(jnp.asarray(x), jnp.asarray(u), bits=bits, block=block, interpret=True)
+    pout, pscales = np.asarray(pout), np.asarray(pscales)
+    np.testing.assert_array_equal(_torch_bits(scales), _bits(pscales))
+    levels = (1 << bits) - 1
+    codes = lambda v, s: np.rint((v / s + 1.0) * 0.5 * levels)  # noqa: E731
+    np.testing.assert_array_equal(codes(out.numpy(), scales.numpy()), codes(pout, pscales))
+    np.testing.assert_allclose(out.numpy(), pout, rtol=0, atol=float(pscales.max()) * 2.0**-21)
+
+
+def test_quantize_nan_and_zero_rows_behave_as_the_oracle():
+    x, u = _quant_inputs(3, 128, seed=9)
+    x[0, 17] = np.nan
+    x[1] = 0.0
+    out, scales = quantize_kernel(torch.from_numpy(x), torch.from_numpy(u), 4)
+    jout, jscales = j_quantize_ref(jnp.asarray(x), jnp.asarray(u), 4)
+    jout, jscales = np.asarray(jout), np.asarray(jscales)
+    assert np.isnan(scales[0, 0].item()) and np.isnan(out[0].numpy()).all()
+    np.testing.assert_array_equal(np.isnan(out.numpy()), np.isnan(jout))
+    np.testing.assert_array_equal(np.nan_to_num(out.numpy()), np.nan_to_num(jout))
+    np.testing.assert_array_equal(np.nan_to_num(scales.numpy()), np.nan_to_num(jscales))
+    # an all-zero row: the scale clamps to 1e-12 and values land on its grid
+    assert scales[1, 0] == np.float32(1e-12)
+    assert (out[1].abs() > 0).all() and (out[1].abs() <= np.float32(1e-12)).all()
+
+
+def test_quantize_blocks_are_cut_per_node():
+    """Node i's result equals quantizing node i alone on its own samples,
+    and equals the reference's vmapped compressor on its own draws."""
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(3, 5, 41)).astype(np.float32)  # 205 values a node: 2 blocks of 128
+    xt = torch.from_numpy(x)
+    u = torch.from_numpy(rng.random((3 * 2, 128), dtype=np.float32))
+    out = quantize_nodes(xt, u, bits=4, block=128)
+    for i in range(3):
+        np.testing.assert_array_equal(out[i].numpy(), quantize(xt[i], u[2 * i : 2 * i + 2], 4, 128).numpy())
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(j_compress_stacked(JKernelQuant(bits=4, block=128), key, jnp.asarray(x)))
+    got = KernelQuant(bits=4, block=128).compress_nodes(xt, JaxReplay(message_leaf_keys(key, 1), 3))
+    # the reference's Pallas epilogue is fused (see the test above)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=float(np.abs(x).max()) * 2.0**-21)
+
+
+def test_quantize_wrapper_rejects_bad_inputs():
+    x = torch.zeros((2, 128))
+    with pytest.raises(ValueError):
+        quantize_kernel(torch.zeros((2, 100)), torch.zeros((2, 100)), 4)
+    with pytest.raises(ValueError):
+        quantize_kernel(x, torch.zeros((2, 256)), 4)
+    with pytest.raises(ValueError):
+        quantize_kernel(torch.zeros(128), torch.zeros(128), 4)
+    with pytest.raises(TypeError):
+        quantize_kernel(x.double(), x.double(), 4)
+    with pytest.raises(TypeError):
+        quantize_kernel(x.to(torch.bfloat16), x, 4)
+    for bits in (0, 9):
+        with pytest.raises(ValueError):
+            quantize_kernel(x, x, bits)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        quantize_kernel(x.to("meta"), x.to("meta"), 4)
