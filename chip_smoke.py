@@ -8,16 +8,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. environment: versions, card name and power limit, TF32 off;
 2. build: nvcc compiles every kernel source of src/repro_torch/kernels/csrc;
-3. kernels at the main path's shapes, each against its plain version on the
-   card (bit-exact), timed (device time by torch.profiler, call time by CUDA
-   events) beside its memory bound and, where one exists, a PyTorch library
-   call computing the same function;
+   every kernel's registers and spills are printed, and a spill fails;
+3. kernels on edge rows (NaN, +-inf, zeros, ties, -0.0, subnormals) at
+   blocks 128 to 4,096 and at the main path's shapes, each against its plain
+   version on the card (bit-exact), timed (device time by torch.profiler,
+   call time by CUDA events) beside its memory bound, a copy_ of the same
+   bytes and, where one exists, a PyTorch library call computing the same
+   function;
 4. main paths: synchronous C2DFB on the 20 Newsgroups-width coefficient-
    tuning task (p = 101,631, c = 20, m = 10 nodes on a ring, label skew 0.8,
    n = 2,000 synthetic documents), K = 10, T = 3 rounds, once with
-   kernel_topk (block top-k must launch exactly 4*K*T times) and once with
-   kernel_quant on a torch.Generator (the quantizer must launch 4*K*T times
-   and every round must meter 417,834,480 bytes); after each, one more
+   kernel_topk (block top-k must launch exactly 4*K*T times and the rounds
+   must meter TOPK_ROUND_BYTES) and once with kernel_quant on a
+   torch.Generator (the quantizer must launch 4*K*T times and every round
+   must meter 417,834,480 bytes); after each, one more
    round is timed and profiled (device busy share, device time by kernel);
 5. wire bytes: round_wire_bytes_measured on each final state.  kernel_topk:
    the pack kernel launches 4*m times, every block-sparse payload equals the
@@ -37,6 +41,8 @@ limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -56,6 +62,9 @@ CFG = dict(K=10, compressor="kernel_topk", comp_ratio=0.2, comp_block=1024)
 CFG_QUANT = dict(K=10, compressor="kernel_quant", comp_bits=4, comp_block=1024)
 T = 3
 BASELINE_ROUNDS = 2
+# the bytes each of the T kernel_topk rounds meters (the earlier top-k
+# kernel metered the same): the count of survivors, so the selection, holds
+TOPK_ROUND_BYTES = (1_310_294_720, 1_310_294_624, 1_310_294_560)
 
 
 def quant_round_bytes() -> tuple[int, int]:
@@ -137,6 +146,15 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def copy_ms(nbytes: int) -> float:
+    """Device time of one Tensor.copy_ that reads nbytes / 2 and writes
+    nbytes / 2: what moving a kernel's bound bytes costs on this card at
+    this size, launch and ramp included, beside the bound's ideal rate."""
+    src = torch.zeros(nbytes // 8, device="cuda")
+    dst = torch.empty_like(src)
+    return timed(lambda: dst.copy_(src))["ms"]
+
+
 def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
@@ -149,6 +167,121 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# edge rows of phase 3: every block the B1 wrapper takes a distinct kernel
+# path for (one warp a row up to 1,024, one CTA a row above), and k at both
+# ends and at the main path's ratio
+EDGE_BLOCKS = (128, 384, 1024, 2048, 4096)
+
+
+def edge_rows(block: int, gen, dev) -> torch.Tensor:
+    """(7, block) f32 rows: normal values; a NaN lane beside a -0.0 lane;
+    +inf and -inf lanes; all zeros; ties from {-1, 0, 1}; a third of the
+    lanes -0.0; subnormals (N(0, 1) * 1e-39)."""
+    x = torch.randn((7, block), generator=gen, device=dev)
+    x[1, 7], x[1, 3] = float("nan"), -0.0
+    x[2, 5], x[2, 9] = float("inf"), float("-inf")
+    x[3] = 0.0
+    x[4] = torch.randint(-1, 2, (block,), generator=gen, device=dev).float()
+    x[5, ::3] = -0.0
+    x[6] *= 1e-39
+    return x
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal NaN positions, and equal bits everywhere else."""
+    na = torch.isnan(a)
+    return torch.equal(na, torch.isnan(b)) and torch.equal(bits(a)[~na], bits(b)[~na])
+
+
+def kernel_edges(dev, gen) -> int:
+    """B1 (f32 and bf16) and B2 on the edge rows at every EDGE_BLOCKS block
+    and k in {1, round(0.2 * block), block}, each bit for bit against its
+    plain version; B3 decodes every pack as its plain version does, and
+    restores the survivors where all fit.  The NaN row comes back from B1
+    unchanged.  Returns the number of cases checked."""
+    from repro_torch.kernels.pack_residuals import (
+        pack_sparse_blocks,
+        pack_sparse_blocks_ref,
+        unpack_sparse_blocks,
+        unpack_sparse_blocks_ref,
+    )
+    from repro_torch.kernels.ref import block_topk_ref
+    from repro_torch.kernels.topk_compress import block_topk_kernel, block_topk_leaf
+
+    cases = 0
+    for block in EDGE_BLOCKS:
+        x = edge_rows(block, gen, dev)
+        # leaves of 3 nodes whose d is no multiple of block, holding the edge
+        # rows; node 2's last (partial) block all zeros.  d % 4 == 0 is read
+        # in place, d % 4 == 2 through padded tiles
+        flat = torch.cat([x.reshape(-1)] * 2)
+        leaves = []
+        for d in (2 * block + 100, 2 * block + 102):
+            leaf = flat[: 3 * d].reshape(3, d).clone()
+            leaf[2, 2 * block:] = 0.0
+            leaves.append(leaf)
+        for k in sorted({1, int(round(0.2 * block)), block}):
+            what = f"block {block} k {k}"
+            for dt in (torch.float32, torch.bfloat16):
+                xin = x.to(dt)
+                got = block_topk_kernel(xin, k)
+                torch.cuda.synchronize()
+                check(same(got, block_topk_ref(xin, k)), f"block_topk {dt} {what} differs from its plain version")
+                check(same(got[1], xin[1]), f"block_topk {dt} {what}: the NaN row did not come back unchanged")
+                for leaf in leaves:
+                    leaf = leaf.to(dt)
+                    d = leaf.shape[1]
+                    tiles = torch.nn.functional.pad(leaf, (0, 3 * block - d)).reshape(-1, block)
+                    want = block_topk_ref(tiles, k).reshape(3, -1)[:, :d]
+                    got = block_topk_leaf(leaf, k, block)
+                    torch.cuda.synchronize()
+                    check(same(got, want), f"block_topk leaf {dt} {what} d {d} differs from its plain version")
+                cases += 1
+            for xin in (x, block_topk_kernel(x, k)):
+                vals, idx = pack_sparse_blocks(xin, k, block)
+                rvals, ridx = pack_sparse_blocks_ref(xin, k, block)
+                back = unpack_sparse_blocks(vals, idx, block)
+                torch.cuda.synchronize()
+                check(torch.equal(bits(vals), bits(rvals)) and torch.equal(idx, ridx),
+                      f"pack {what} differs from its plain version")
+                check(same(back, unpack_sparse_blocks_ref(vals, idx, block)), f"unpack {what} differs from its plain version")
+                if k == block:
+                    check(same(back, torch.where(xin != 0, xin, 0.0)), f"unpack(pack(x)) != x at {what}")
+                cases += 1
+    print(f"[kernels] edge rows: {cases} cases at blocks {EDGE_BLOCKS} (B1 on tiles and on leaves in place, "
+          f"B2, B3), bit-exact against the plain versions")
+    return cases
+
+
+# the instance of each kernel that the main path's shapes launch
+MAIN_INSTANCES = {
+    "block_topk": "warp_topk_kernel<float, 32, 32>",
+    "pack_sparse_blocks": "pack_kernel",
+    "unpack_sparse_blocks": "unpack_kernel",
+    "quantize": "quantize_kernel",
+}
+
+
+def ptxas_report(logs: dict) -> dict:
+    """{(source, kernel): (registers, spill store bytes, spill load bytes)}
+    for every kernel, from the -Xptxas -v lines of the build logs, with the
+    names demangled by c++filt where the toolkit's machine has it."""
+    report, cur = {}, None
+    for src, log in logs.items():
+        if shutil.which("c++filt"):
+            log = subprocess.run(["c++filt"], input=log, capture_output=True, text=True, check=True).stdout
+        for line in log.splitlines():
+            if m := re.search(r"Compiling entry function '(.+)' for", line):
+                fn = m.group(1).replace("(anonymous namespace)::", "").removeprefix("void ")
+                cur = (src, fn.split("(")[0])
+                report[cur] = [None, 0, 0]
+            elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+                report[cur][1:] = int(m.group(1)), int(m.group(2))
+            elif cur and (m := re.search(r"Used (\d+) registers", line)):
+                report[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in report.items()}
+
+
 def phase_kernels(dev) -> dict:
     from repro_torch.kernels.pack_residuals import (
         pack_sparse_blocks,
@@ -157,13 +290,14 @@ def phase_kernels(dev) -> dict:
         unpack_sparse_blocks_ref,
     )
     from repro_torch.kernels.ref import block_topk_ref
-    from repro_torch.kernels.topk_compress import block_topk_kernel
+    from repro_torch.kernels.topk_compress import block_topk_kernel, block_topk_leaf
 
     m, p, c, block = TASK["m"], TASK["p"], TASK["c"], CFG["comp_block"]
     nb_node = -(-p * c // block)  # 1,985 blocks a node
     rows = m * nb_node            # 19,850 rows a top-k launch
     k = max(1, int(round(CFG["comp_ratio"] * block)))
     gen = torch.Generator(device=dev).manual_seed(0)
+    kernel_edges(dev, gen)
     x = torch.randn((rows, block), generator=gen, device=dev)
     res = {}
 
@@ -184,21 +318,33 @@ def phase_kernels(dev) -> dict:
             ms=kt["ms"], call_ms=kt["call_ms"], timer=kt["timer"],
             plain_ms=timed(lambda: block_topk_ref(xin, k), iters=3, warmup=1)["ms"],
             bound_ms=bound_ms(2 * xin.numel() * xin.element_size()),
+            copy_ms=copy_ms(2 * xin.numel() * xin.element_size()),
             library_ms=timed(lib, iters=5)["ms"],
         )
         print(f"[kernels] block_topk {name} ({rows}, {block}) k={k}: {topk[name]}")
+    # the main path's call: the (m, p * c) leaf read in place
+    leaf = x.reshape(-1)[: m * p * c].reshape(m, p * c)
+    got = block_topk_leaf(leaf, k, block)
+    tiles = torch.nn.functional.pad(leaf, (0, nb_node * block - p * c)).reshape(rows, block)
+    want = block_topk_ref(tiles, k).reshape(m, -1)[:, : p * c]
+    torch.cuda.synchronize()
+    check(torch.equal(bits(got), bits(want)), "block_topk on the leaf in place differs from its plain version")
+    leaf_t = timed(lambda: block_topk_leaf(leaf, k, block))
+    print(f"[kernels] block_topk f32 leaf ({m}, {p * c}) in place: {leaf_t}")
     q_all = block_topk_kernel(x, k)
     res["block_topk"] = dict(
-        name="block_topk", route="cuda", ok=True,
+        name="block_topk", route="cuda", ok=True, redesigned="PR 14",
         source="src/repro_torch/kernels/csrc/topk_compress.cu",
         replaces="src/repro/kernels/topk_compress.py:53",
         shape=[rows, block], k=k,
         max_abs_err=topk["f32"]["max_abs_err"], ms=topk["f32"]["ms"],
         call_ms=topk["f32"]["call_ms"], timer=topk["f32"]["timer"],
         plain_ms=topk["f32"]["plain_ms"], bound_ms=topk["f32"]["bound_ms"],
-        bound_by="bytes", library_ms=topk["f32"]["library_ms"],
+        bound_by="bytes", copy_ms=topk["f32"]["copy_ms"], library_ms=topk["f32"]["library_ms"],
         library="exact top-k: torch.topk + scatter (not bisection)",
-        bf16={kk: topk["bf16"][kk] for kk in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "library_ms")},
+        bf16={kk: topk["bf16"][kk] for kk in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "copy_ms",
+                                              "library_ms")},
+        leaf=dict(shape=[m, p * c], ms=leaf_t["ms"], call_ms=leaf_t["call_ms"]),
     )
 
     # B2: pack one node's blocks of B1's output
@@ -211,7 +357,7 @@ def phase_kernels(dev) -> dict:
     check(torch.equal(idx, ridx), "pack idx differ from the plain version")
     kpad = vals.shape[1]
     res["pack_sparse_blocks"] = dict(
-        name="pack_sparse_blocks", route="cuda", ok=True,
+        name="pack_sparse_blocks", route="cuda", ok=True, redesigned="PR 14",
         source="src/repro_torch/kernels/csrc/pack_residuals.cu",
         replaces="src/repro/kernels/pack_residuals.py:71",
         shape=[nb_node, block], k=kk, kpad=kpad,
@@ -219,7 +365,7 @@ def phase_kernels(dev) -> dict:
         **timed(lambda: pack_sparse_blocks(q, kk, block)),
         plain_ms=timed(lambda: pack_sparse_blocks_ref(q, kk, block), iters=5)["ms"],
         bound_ms=bound_ms(q.numel() * 4 + vals.numel() * 8),
-        bound_by="bytes", library_ms=None,
+        bound_by="bytes", copy_ms=copy_ms(q.numel() * 4 + vals.numel() * 8), library_ms=None,
     )
     print(f"[kernels] pack_sparse_blocks: {res['pack_sparse_blocks']}")
 
@@ -241,7 +387,7 @@ def phase_kernels(dev) -> dict:
         **timed(lambda: unpack_sparse_blocks(vals, idx, block)),
         plain_ms=timed(lambda: unpack_sparse_blocks_ref(vals, idx, block), iters=5)["ms"],
         bound_ms=bound_ms(vals.numel() * 8 + back.numel() * 4),
-        bound_by="bytes",
+        bound_by="bytes", copy_ms=copy_ms(vals.numel() * 8 + back.numel() * 4),
         library_ms=timed(
             lambda: torch.zeros((nb_node, block + 1), device=dev).scatter_add_(1, idx64, vals)
         )["ms"],
@@ -293,7 +439,7 @@ def kernel_quantize(dev, x, gen) -> dict:
         plain_ms=timed(lambda: quantize_ref(x, u, bits_main), iters=5)["ms"],
         # read x and u, write out and the (rows,) scales
         bound_ms=bound_ms(3 * x.numel() * 4 + rows * 4),
-        bound_by="bytes", library_ms=None,
+        bound_by="bytes", copy_ms=copy_ms(3 * x.numel() * 4 + rows * 4), library_ms=None,
         library="none: no single PyTorch call computes it",
         # the U[0,1) draw the kernel is fed (torch.rand, outside the kernel)
         rand_ms=draw["ms"], rand_call_ms=draw["call_ms"], rand_bound_ms=bound_ms(x.numel() * 4),
@@ -343,9 +489,9 @@ def phase_main_path(dev, bundle, cfg_kw: dict, kernel: str, generator=None):
         print(f"{tag} round {t}: hypergrad_norm {float(mets['hypergrad_norm'][t])!r} "
               f"measured_bytes {int(mets['measured_bytes'][t])} "
               f"x_consensus_err {float(mets['x_consensus_err'][t])!r}")
-    if cfg.compressor == "kernel_quant":
-        want = quant_round_bytes()[1]
-        check(all(int(b) == want for b in mets["measured_bytes"]), f"measured_bytes {mets['measured_bytes'].tolist()}, want {want}")
+    want = quant_round_bytes()[1:] * T if cfg.compressor == "kernel_quant" else TOPK_ROUND_BYTES
+    got = tuple(int(b) for b in mets["measured_bytes"])
+    check(got == want, f"measured_bytes {got}, want {want}")
     profile_round(bundle.problem, topo, cfg, state, generator, tag)
     return state, cfg, topo, counts[kernel]
 
@@ -584,13 +730,18 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     print(f"[build] {time.perf_counter() - t0:.3f} s")
-    for name, log in _build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"[build] {name}: {line.strip()}")
+    ptxas = ptxas_report(_build.BUILD_LOGS)
+    for (src, fn), (regs, st, ld) in sorted(ptxas.items()):
+        print(f"[build] {src}: {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    check(ptxas and not any(st or ld for _, st, ld in ptxas.values()), "a kernel spills registers (or ptxas said nothing)")
 
     # 3. kernels at main-path shapes
     kernels = phase_kernels(dev)
+    for name, fn in MAIN_INSTANCES.items():
+        found = [v for (_, f), v in ptxas.items() if f == fn]
+        check(len(found) == 1, f"ptxas reported no kernel {fn}")
+        kernels[name]["registers"], st, ld = found[0]
+        kernels[name]["spill_bytes"] = st + ld
     # 4. main paths: kernel_topk, then kernel_quant on the same task
     bundle = build_task(dev)
     state, cfg, topo, kernels["block_topk"]["launches"] = phase_main_path(dev, bundle, CFG, "block_topk")

@@ -13,8 +13,11 @@ keyed on a hash of the source and the flags, so a changed source rebuilds
 and an unchanged one loads what is there.  All missing sources are compiled
 in parallel, one nvcc process each.
 
-``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds one
-where it launches its kernel and nowhere else.
+``BUILD_LOGS`` holds nvcc's output of each source (its -Xptxas -v lines
+name every kernel's registers and spills), kept beside the library so a
+later process that loads it finds the log too.  ``LAUNCHES`` holds one
+plain integer per kernel wrapper; a wrapper adds one where it launches its
+kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ SIGNATURES = {
     "topk_compress": {
         "block_topk_f32": (_P, _P, _I, _I, _I, _P),
         "block_topk_bf16": (_P, _P, _I, _I, _I, _P),
+        "block_topk_leaf_f32": (_P, _P, _I, _I, _I, _I, _P),
+        "block_topk_leaf_bf16": (_P, _P, _I, _I, _I, _I, _P),
     },
     "pack_residuals": {
         "pack_sparse_blocks_f32": (_P, _P, _P, _I, _I, _I, _P),
@@ -88,6 +93,9 @@ def build(names=None) -> float:
     nvcc's output if any compile fails."""
     names = list(SIGNATURES) if names is None else list(names)
     todo = [n for n in names if not library_path(n).exists()]
+    for n in set(names) - set(todo) - set(BUILD_LOGS):
+        log = library_path(n).with_suffix(".log")
+        BUILD_LOGS[n] = log.read_text() if log.exists() else ""
     t0 = time.perf_counter()
     if not todo:
         return 0.0
@@ -105,6 +113,7 @@ def build(names=None) -> float:
         out, _ = proc.communicate()
         BUILD_LOGS[n] = out
         if proc.returncode == 0:
+            library_path(n).with_suffix(".log").write_text(out)
             os.replace(tmp, library_path(n))
         else:
             failed.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n{out}")

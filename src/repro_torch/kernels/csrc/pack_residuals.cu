@@ -19,78 +19,79 @@
 // movement.
 //
 // Design.  The TPU kernel routes survivors through a one-hot matmul on the
-// MXU; on Hopper a scan and a direct store do it without the block x kpad
-// product.  pack: one CTA of 256 threads per row; each thread owns
-// ceil(block / 256) contiguous lanes (4 at block 1024, one 16-byte span) and
-// counts its survivors; an exclusive block-wide scan (warp shuffles, then
-// one pass over the 8 warp totals in shared memory) gives each thread its
-// first rank; a second pass over its lanes (now in L1) stores the survivors
-// at their ranks; then the threads fill [nnz, kpad).  unpack: one CTA of 256
-// threads per row zeroes a shared-memory row, atomicAdds each in-range slot
-// into it (duplicate indices sum, as the one-hot product does) and writes
-// the row out coalesced.
+// MXU; on Hopper ballots and a direct store do it without the block x kpad
+// product.  pack: one warp per row, 8 rows per CTA of 256 threads.  Lane l
+// reads elements 4l..4l+3 of each 128-element chunk as one float4, so a
+// chunk is one coalesced load for the warp, and up to 8 chunks (a row of
+// 1,024) are loaded before any is ranked, so the row's loads are in flight
+// together and the row is read once.  Within a chunk, survivors go in lane
+// order and, within a lane, in element order: one __ballot_sync per element
+// gives the survivors of the lower lanes (popc of the ballot under the
+// lane mask), and the lane's own earlier elements come next, so each
+// survivor's rank is known and it is stored straight to its slot.  The
+// running base moves by the chunk's survivor count.  Then the lanes fill
+// [nnz, kpad).  No shared memory, no CTA barrier.  At the main path's size
+// a copy_ of the same bytes takes nearly as long (chip_smoke.py's copy_ms):
+// so small a kernel is held by its launch, ramp and drain more than by its
+// design.  unpack: one CTA of 256 threads per row zeroes a shared-memory
+// row, atomicAdds each in-range slot into it (duplicate indices sum, as the
+// one-hot product does) and writes the row out coalesced.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;           // unpack: threads a row
+constexpr int kPackRowsPerCta = 8;      // pack: one row a warp
+constexpr int kPackChunks = 8;          // pack: 128-element chunks held at once
 constexpr int kMaxUnpackBlock = 12288;  // 48 KB of static-limit shared memory
 
-__global__ void __launch_bounds__(kThreads)
-    pack_kernel(const float* __restrict__ x, float* __restrict__ vals,
-                int* __restrict__ idx, int block, int kpad) {
-  __shared__ unsigned s_warp[kWarps];
-  const size_t row = blockIdx.x;
-  const float* xr = x + row * block;
+__global__ void __launch_bounds__(kPackRowsPerCta * 32)
+    pack_kernel(const float4* __restrict__ x, float* __restrict__ vals,
+                int* __restrict__ idx, int nb, int block, int kpad) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = static_cast<size_t>(blockIdx.x) * kPackRowsPerCta + (threadIdx.x >> 5);
+  if (row >= static_cast<size_t>(nb)) return;
+  const int chunks = block >> 7;
+  const float4* xr = x + row * (block >> 2);
   float* vr = vals + row * kpad;
   int* ir = idx + row * kpad;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;  // the lanes under this one
 
-  const int per = (block + kThreads - 1) / kThreads;
-  const int begin = min(tid * per, block);
-  const int end = min(begin + per, block);
-
-  unsigned c = 0;
-  for (int l = begin; l < end; ++l) c += xr[l] != 0.0f ? 1u : 0u;
-
-  // inclusive scan within the warp
-  unsigned inc = c;
+  unsigned base = 0;  // survivors of the chunks before
+  for (int c0 = 0; c0 < chunks; c0 += kPackChunks) {
+    float4 v[kPackChunks];
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned n = __shfl_up_sync(0xffffffffu, inc, off);
-    if (lane >= off) inc += n;
-  }
-  if (lane == 31) s_warp[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    unsigned w = lane < kWarps ? s_warp[lane] : 0u;
+    for (int j = 0; j < kPackChunks; ++j)
+      if (c0 + j < chunks) v[j] = xr[(c0 + j) * 32 + lane];
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const unsigned n = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += n;
-    }
-    if (lane < kWarps) s_warp[lane] = w;  // inclusive warp offsets
-  }
-  __syncthreads();
-  const unsigned nnz = s_warp[kWarps - 1];
-  unsigned r = (warp > 0 ? s_warp[warp - 1] : 0u) + inc - c;  // exclusive rank
-
-  for (int l = begin; l < end; ++l) {
-    const float v = xr[l];
-    if (v != 0.0f) {
-      if (r < static_cast<unsigned>(kpad)) {
-        vr[r] = v;
-        ir[r] = l;
+    for (int j = 0; j < kPackChunks; ++j) {
+      if (c0 + j >= chunks) break;  // uniform across the warp
+      const float e[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+      unsigned r = base;
+      unsigned n = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned ballot = __ballot_sync(0xffffffffu, e[q] != 0.0f);
+        r += __popc(ballot & below);
+        n += __popc(ballot);
       }
-      ++r;
+      const int lane0 = (c0 + j) * 128 + 4 * lane;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (e[q] != 0.0f) {
+          if (r < static_cast<unsigned>(kpad)) {
+            vr[r] = e[q];
+            ir[r] = lane0 + q;
+          }
+          ++r;
+        }
+      }
+      base += n;
     }
   }
-  for (unsigned s = nnz + tid; s < static_cast<unsigned>(kpad); s += kThreads) {
+  for (unsigned s = base + lane; s < static_cast<unsigned>(kpad); s += 32) {
     vr[s] = 0.0f;
     ir[s] = block;
   }
@@ -120,10 +121,12 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int pack_sparse_blocks_f32(const void* x, void* vals, void* idx, int nb,
                                       int block, int kpad, void* stream) {
-  if (nb < 0 || block <= 0 || kpad <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb < 0 || block <= 0 || block % 128 != 0 || kpad <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nb == 0) return 0;
-  pack_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(vals), static_cast<int*>(idx),
+  const int grid = (nb + kPackRowsPerCta - 1) / kPackRowsPerCta;
+  pack_kernel<<<grid, kPackRowsPerCta * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<float*>(vals), static_cast<int*>(idx), nb,
       block, kpad);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,11 @@
 """Public wrappers over the compression kernels (``repro.kernels.ops``'s
 counterpart).
 
-Flatten / pad / reshape plumbing lives here; the kernels see clean
-(rows, block) tiles.  Blocks are cut PER NODE, as the reference cuts them
-(it vmaps the compressor over the node axis and pads each node's flat leaf
-on its own), and every node's blocks of a leaf go to ONE launch of shape
-(m * nb, block): no block ever straddles two nodes.
+Blocks are cut PER NODE, as the reference cuts them (it vmaps the
+compressor over the node axis and pads each node's flat leaf on its own),
+and every node's blocks of a leaf go to ONE launch of m * nb rows: no block
+ever straddles two nodes.  The quantizer sees (m * nb, block) zero-padded
+tiles; block top-k reads the (m, d) leaf in place.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.quantize import quantize_kernel
-from repro_torch.kernels.topk_compress import block_topk_kernel
+from repro_torch.kernels.topk_compress import block_topk_leaf
 
 
 def to_blocks(x: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
@@ -34,10 +34,10 @@ def from_blocks(tiles: torch.Tensor, d: int, like: torch.Tensor) -> torch.Tensor
 
 
 def block_topk_nodes(x: torch.Tensor, ratio: float = 0.2, block: int = 1024) -> torch.Tensor:
-    """Kernel-backed block top-k of every node's copy of a node-stacked leaf."""
-    tiles, d = to_blocks(x, block)
+    """Kernel-backed block top-k of every node's copy of a node-stacked leaf
+    (one launch, which reads the leaf in place where it can)."""
     k = max(1, int(round(ratio * block)))
-    return from_blocks(block_topk_kernel(tiles, k), d, x)
+    return block_topk_leaf(x.reshape(x.shape[0], -1), k, block).reshape(x.shape)
 
 
 def block_topk(x: torch.Tensor, ratio: float = 0.2, block: int = 1024) -> torch.Tensor:

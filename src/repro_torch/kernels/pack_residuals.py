@@ -77,6 +77,8 @@ def pack_sparse_blocks(x2d: torch.Tensor, k: int, block: int):
     if not _check_device(x2d, "pack_sparse_blocks"):
         return pack_sparse_blocks_ref(x2d, k, block)
     x = x2d.to(torch.float32).contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads rows as float4
     nb = x.shape[0]
     kpad = padded_k(k)
     vals = torch.empty((nb, kpad), dtype=torch.float32, device=x.device)

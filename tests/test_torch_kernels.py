@@ -30,7 +30,7 @@ from repro_torch.kernels.pack_residuals import (
 )
 from repro_torch.kernels.quantize import quantize_kernel
 from repro_torch.kernels.ref import block_topk_ref, quantize_ref
-from repro_torch.kernels.topk_compress import block_topk_kernel
+from repro_torch.kernels.topk_compress import block_topk_kernel, block_topk_leaf
 
 from _torch_replay import JaxReplay, message_leaf_keys
 
@@ -54,29 +54,75 @@ def _torch_bits(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int32).numpy()
 
 
-@pytest.mark.parametrize("nb", [1, 5, 16])
-@pytest.mark.parametrize("block", [128, 1024])
+def _edge_rows(block: int, seed: int) -> np.ndarray:
+    """(16, block) f32 rows: a NaN lane beside a -0.0 lane; +inf and -inf
+    lanes; all zeros; ties from {-1, 0, 1}; a third of the lanes -0.0; then
+    normal rows at scales from 0.01 to 10.  No subnormals: JAX on the CPU
+    flushes them to zero, so the card alone checks those (chip_smoke.py)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(16, block)) * rng.uniform(0.01, 10.0, size=(16, 1))).astype(np.float32)
+    x[0, 7], x[0, 3] = np.nan, -0.0
+    x[1, 5], x[1, 9] = np.inf, -np.inf
+    x[2] = 0.0
+    x[3] = rng.integers(-1, 2, size=block)
+    x[4, ::3] = -0.0
+    return x
+
+
+def _k_of(kind: str, block: int) -> int:
+    return {"one": 1, "ratio": int(round(0.2 * block)), "all": block}[kind]
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as a numpy array of its dtype (bf16 as jnp.bfloat16)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(jnp.bfloat16)
+    return t.numpy()
+
+
+def _assert_same(got: np.ndarray, want: np.ndarray) -> None:
+    """Equal NaN positions, equal bits everywhere else."""
+    nan = np.isnan(got.astype(np.float32))
+    np.testing.assert_array_equal(nan, np.isnan(want.astype(np.float32)))
+    np.testing.assert_array_equal(_bits(got)[~nan], _bits(want)[~nan])
+
+
+@pytest.mark.parametrize("block", [128, 384, 1024, 2048, 4096])
+@pytest.mark.parametrize("k_kind", ["one", "ratio", "all"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_topk_plain_matches_pallas_and_ref_bit_for_bit(nb, block, dtype):
-    rng = np.random.default_rng(nb * 7 + block)
-    x = rng.normal(size=(nb, block)).astype(np.float32)
+def test_topk_plain_matches_pallas_and_ref_bit_for_bit(block, k_kind, dtype):
+    x = _edge_rows(block, seed=block)
     xj, xt = _same_inputs(x, dtype)
-    k = max(1, int(round(0.2 * block)))
+    k = _k_of(k_kind, block)
     got = block_topk_kernel(xt, k)  # a CPU tensor: the plain version
     np.testing.assert_array_equal(_torch_bits(got), _torch_bits(block_topk_ref(xt, k)))
-    want_ref = np.asarray(j_block_topk_ref(xj, k))
-    np.testing.assert_array_equal(_torch_bits(got), _bits(want_ref))
+    _assert_same(_np(got), np.asarray(j_block_topk_ref(xj, k)))
     want_pallas = np.asarray(block_topk_pallas(xj, k=k, block=block, interpret=True))
     if dtype == "f32":
         # XLA fuses the interpret-mode kernel body and rewrites x * mask into
         # a select, so its dropped negatives are +0.0 where the jnp oracle
-        # (and the port) give -0.0; every other bit agrees
-        want_pallas = np.where(want_pallas == 0, np.float32(0), want_pallas)
-        got_np = got.numpy()
-        got_np = np.where(got_np == 0, np.float32(0), got_np)
-        np.testing.assert_array_equal(_bits(got_np), _bits(want_pallas))
+        # (and the port) give -0.0, and its NaN lanes 0.0 where they give
+        # NaN; every other bit agrees
+        finite = ~np.isnan(x)
+        canon = lambda a: np.where(a == 0, np.float32(0), a)  # noqa: E731
+        np.testing.assert_array_equal(_bits(canon(_np(got)))[finite], _bits(canon(want_pallas))[finite])
     else:
-        np.testing.assert_array_equal(_torch_bits(got), _bits(want_pallas))
+        _assert_same(_np(got), want_pallas)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_topk_row_with_a_nan_comes_back_unchanged(dtype):
+    """max|x| is NaN for such a row (as jnp.max gives), every bisection mid
+    is NaN and every count 0, so the threshold stays 0: every finite value
+    is kept as it is (-0.0 too) and every NaN lane stays NaN."""
+    x = _edge_rows(128, seed=1)[:1]
+    x[0, 40] = np.nan
+    xj, xt = _same_inputs(x, dtype)
+    got = block_topk_kernel(xt, 26)
+    assert torch.isnan(got[0, [7, 40]]).all()
+    assert got[0, 3] == 0 and torch.signbit(got[0, 3])
+    _assert_same(_np(got), _np(xt))
+    _assert_same(_np(got), np.asarray(j_block_topk_ref(xj, 26)))
 
 
 def test_topk_drops_negatives_to_negative_zero():
@@ -88,33 +134,56 @@ def test_topk_drops_negatives_to_negative_zero():
 
 
 def _pack_rows(block: int) -> np.ndarray:
-    """Rows with -0.0 entries, an empty row and a row with more survivors
-    than kpad (k = 100 -> kpad = 128 < 200 survivors)."""
+    """Rows with -0.0 entries, an empty row, a row with more survivors than
+    a kpad below block (~80% of the lanes), a row with a NaN lane, a row
+    with +inf and -inf lanes, and a row of ties from {-1, 0, 1}."""
     rng = np.random.default_rng(3)
-    x = rng.normal(size=(5, block)).astype(np.float32)
+    x = rng.normal(size=(8, block)).astype(np.float32)
     x[0] = np.where(rng.random(block) < 0.2, x[0], 0.0)
     x[0, 1::17] = -0.0
     x[1] = 0.0  # empty row
     x[2, :] = 0.0
     x[2, [0, 5, block - 1]] = [-0.0, 4.0, -2.5]
-    x[3] = np.where(rng.random(block) < 0.8, x[3], 0.0)  # ~200 survivors
+    x[3] = np.where(rng.random(block) < 0.8, x[3], 0.0)
     x[4] = np.where(rng.random(block) < 0.35, x[4], -0.0)
+    x[5] = np.where(rng.random(block) < 0.2, x[5], 0.0)
+    x[5, [3, 11]] = [np.nan, -0.0]
+    x[6] = np.where(rng.random(block) < 0.2, x[6], 0.0)
+    x[6, [2, 9]] = [np.inf, -np.inf]
+    x[7] = rng.integers(-1, 2, size=block)
     return x
 
 
-def test_pack_and_unpack_plain_match_pallas_exactly():
-    block, k = 256, 100
+@pytest.mark.parametrize("block", [128, 256, 1024, 4096])
+@pytest.mark.parametrize("k_kind", ["one", "ratio", "all"])
+def test_pack_and_unpack_plain_match_pallas_exactly(block, k_kind):
+    """Bit for bit against the Pallas kernels, except on rows holding a NaN
+    or an inf, whose values the reference's one-hot matmul turns all NaN
+    (0 * inf is NaN); there the records hold each survivor as it is, in lane
+    order, and unpack restores them."""
+    k = _k_of(k_kind, block)
+    kpad = padded_k(k)
     x = _pack_rows(block)
     vj, ij = j_pack(jnp.asarray(x), k=k, block=block, interpret=True)
     vt, it = pack_sparse_blocks(torch.from_numpy(x), k, block)
-    assert vt.shape == (5, padded_k(k)) and vt.dtype == torch.float32
+    assert vt.shape == (8, kpad) and vt.dtype == torch.float32
     assert it.dtype == torch.int32
-    assert (np.count_nonzero(x, axis=1) > padded_k(k)).any()
-    np.testing.assert_array_equal(_torch_bits(vt), _bits(vj))
+    if kpad < block:
+        assert (np.count_nonzero(x, axis=1) > kpad).any()
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
-    uj = j_unpack(vj, ij, block=block, interpret=True)
+    finite = np.isfinite(x).all(axis=1)
+    np.testing.assert_array_equal(_torch_bits(vt)[finite], _bits(vj)[finite])
+    uj = np.asarray(j_unpack(vj, ij, block=block, interpret=True))
     ut = unpack_sparse_blocks(vt, it, block)
-    np.testing.assert_array_equal(_torch_bits(ut), _bits(uj))
+    np.testing.assert_array_equal(_torch_bits(ut)[finite], _bits(uj)[finite])
+    for row in np.flatnonzero(~finite):
+        lanes = np.flatnonzero(x[row] != 0)[:kpad]
+        want = np.zeros(kpad, np.float32)
+        want[: lanes.size] = x[row, lanes]
+        _assert_same(_np(vt[row]), want)
+        kept = np.zeros(block, np.float32)
+        kept[lanes] = x[row, lanes]
+        _assert_same(_np(ut[row]), kept)
 
 
 def test_unpack_inverts_pack_when_survivors_fit():
@@ -165,6 +234,30 @@ def test_blocks_are_cut_per_node():
     )
     np.testing.assert_array_equal(out.numpy(), want)
     np.testing.assert_array_equal(KernelBlockTopK(0.2, 128).compress_nodes(xt).numpy(), want)
+
+
+@pytest.mark.parametrize("d", [100, 205, 1028])
+def test_leaf_entry_matches_padded_tiles_and_the_reference(d):
+    """block_topk_leaf on an (m, d) leaf whose d is no multiple of block
+    equals block top-k of each node's zero-padded tiles, block_topk_nodes,
+    and the reference's vmapped compressor."""
+    block, k = 128, 26
+    rng = np.random.default_rng(d)
+    flat = rng.normal(size=(3, d)).astype(np.float32)
+    flat[2, 128:] = 0.0  # an all-zero partial last block where d > 128
+    ft = torch.from_numpy(flat)
+    got = block_topk_leaf(ft, k, block)
+    assert got.shape == (3, d)
+    nb = -(-d // block)
+    tiles = np.zeros((3, nb * block), np.float32)
+    tiles[:, :d] = flat
+    want = block_topk_kernel(torch.from_numpy(tiles).reshape(3 * nb, block), k).reshape(3, -1)[:, :d]
+    np.testing.assert_array_equal(_torch_bits(got.contiguous()), _torch_bits(want.contiguous()))
+    np.testing.assert_array_equal(_torch_bits(block_topk_nodes(ft, k / block, block)), _torch_bits(got.contiguous()))
+    # the reference's compressor runs the Pallas kernel (dropped negatives
+    # +0.0, see above): equal values
+    jwant = j_compress_stacked(JKernelBlockTopK(ratio=k / block, block=block), jax.random.PRNGKey(0), jnp.asarray(flat))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jwant))
 
 
 def test_kernel_compressor_contractive():

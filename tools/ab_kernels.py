@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""Time an earlier build of the port's top-k and pack kernels against the
+current one on one CUDA card, in turns, and dump both builds' SASS.
+
+    git archive <commit> src/repro_torch/kernels/csrc | tar -x -C old/
+    python3 tools/ab_kernels.py old/src/repro_torch/kernels/csrc --out DIR
+
+The earlier sources must export the tile entry points of the current ones
+(``block_topk_f32``, ``block_topk_bf16``, ``pack_sparse_blocks_f32``, with
+the signatures of ``_build.SIGNATURES``).  Both builds use the port's nvcc flags.  Each build
+is first checked bit for bit against the plain versions at the main path's
+shapes (block top-k f32 and bf16 at (19,850, 1,024), k = 205; pack at
+(1,985, 1,024) of its output).  Then each kernel is timed in the order
+earlier, current, current, earlier, as chip_smoke.py times a kernel (device
+time by torch.profiler, call time by CUDA events).  The SASS of both
+libraries goes to DIR, with each kernel's instruction count by opcode, in
+all and in its first loop, printed for the instances the main path
+launches.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import json
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.pack_residuals import pack_sparse_blocks_ref, padded_k  # noqa: E402
+from repro_torch.kernels.ref import block_topk_ref  # noqa: E402
+
+SOURCES = ("topk_compress", "pack_residuals")
+
+
+def build(csrc: Path, out: Path) -> dict[str, ctypes.CDLL]:
+    """nvcc every source of ``csrc`` in parallel into ``out``; load each."""
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {n: subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"),
+                                  str(csrc / f"{n}.cu")], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True) for n in SOURCES}
+    libs = {}
+    for n, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc {csrc / n}.cu failed:\n{log}")
+        lib = ctypes.CDLL(str(out / f"lib{n}.so"))
+        for fn, argtypes in _build.SIGNATURES[n].items():
+            if not hasattr(lib, fn):  # an entry point the earlier sources lack
+                continue
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[n] = lib
+    return libs
+
+
+def sass_counts(lib: Path, dump: Path) -> dict[str, tuple[collections.Counter, collections.Counter]]:
+    """{kernel: (opcode counts of the whole kernel, of its first loop)} from
+    cuobjdump -sass, whose text goes to ``dump``.  The loop is the span from
+    the target of the first backward branch to that branch: the bisection
+    round of block top-k (its 24 rounds are not unrolled)."""
+    text = subprocess.run(["cuobjdump", "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    dump.write_text(text)
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if m := re.match(r"\s*Function : (\S+)", line):
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None and (m := re.search(r"/\*([0-9a-f]{4})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)", line)):
+            cur.append((int(m.group(1), 16), m.group(3).split(".")[0], m.group(4)))
+    out = {}
+    for fn, ins in funcs.items():
+        loop = collections.Counter()
+        for addr, op, args in ins:
+            tgt = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+            if tgt and int(tgt.group(1), 16) < addr:
+                loop.update(o for a, o, _ in ins if int(tgt.group(1), 16) <= a <= addr)
+                break
+        out[fn] = (collections.Counter(op for _, op, _ in ins), loop)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("old_csrc", type=Path)
+    ap.add_argument("--out", type=Path, required=True, help="directory for the SASS dumps")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_kernels: no CUDA device available", file=sys.stderr)
+        return 1
+    smi = chip_smoke.nvidia_smi()
+    print(f"[env] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    args.out.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        builds = {"earlier": build(args.old_csrc, Path(tmp) / "earlier"),
+                  "current": build(_build.CSRC, Path(tmp) / "current")}
+        for side in builds:
+            for n in SOURCES:
+                for fn, (ops, loop) in sass_counts(Path(tmp) / side / f"lib{n}.so", args.out / f"{side}-{n}.sass").items():
+                    if re.search(r"topk_kernelI(f|13__nv_bfloat16)(Li32)?E|pack_kernel", fn):
+                        print(f"[sass] {side} {fn}: {sum(ops.values())} instructions, {dict(ops.most_common(12))}; "
+                              f"first loop {sum(loop.values())} instructions, {dict(loop.most_common(8))}")
+
+        dev = "cuda"
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rows, block, k = 19850, 1024, 205
+        nb_node = rows // 10
+        x = torch.randn((rows, block), generator=gen, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        results = collections.defaultdict(list)
+
+        def topk(lib, xin):
+            out = torch.empty_like(xin)
+            name = "block_topk_f32" if xin.dtype == torch.float32 else "block_topk_bf16"
+            _build.check(getattr(lib, name)(xin.data_ptr(), out.data_ptr(), rows, block, k, stream), name)
+            return out
+
+        q = block_topk_ref(x, k)[:nb_node].contiguous()
+        kk = int(torch.count_nonzero(q, dim=1).max())
+        kpad = padded_k(kk)
+
+        def pack(lib):
+            vals = torch.empty((nb_node, kpad), device=dev)
+            idx = torch.empty((nb_node, kpad), dtype=torch.int32, device=dev)
+            _build.check(lib.pack_sparse_blocks_f32(q.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                                                    nb_node, block, kpad, stream), "pack")
+            return vals, idx
+
+        xb = x.to(torch.bfloat16)
+        rvals, ridx = pack_sparse_blocks_ref(q, kk, block)
+        for side, libs in builds.items():
+            for xin in (x, xb):
+                got = topk(libs["topk_compress"], xin)
+                torch.cuda.synchronize()
+                chip_smoke.check(torch.equal(chip_smoke.bits(got), chip_smoke.bits(block_topk_ref(xin, k))),
+                                 f"{side} block_topk {xin.dtype} differs from its plain version")
+            vals, idx = pack(libs["pack_residuals"])
+            torch.cuda.synchronize()
+            chip_smoke.check(torch.equal(chip_smoke.bits(vals), chip_smoke.bits(rvals)) and torch.equal(idx, ridx),
+                             f"{side} pack differs from its plain version")
+        print(f"[check] both builds bit-exact: block_topk f32 and bf16 ({rows}, {block}) k={k}, "
+              f"pack ({nb_node}, {block}) kpad {kpad}")
+
+        for side in ("earlier", "current", "current", "earlier"):
+            libs = builds[side]
+            for what, fn in (("block_topk_f32", lambda: topk(libs["topk_compress"], x)),
+                             ("block_topk_bf16", lambda: topk(libs["topk_compress"], xb)),
+                             ("pack_sparse_blocks", lambda: pack(libs["pack_residuals"]))):
+                t = chip_smoke.timed(fn)
+                results[what].append(dict(side=side, ms=t["ms"], call_ms=t["call_ms"], timer=t["timer"]))
+                print(f"[ab] {side} {what}: {t}")
+    print(json.dumps({"card": smi, "ab": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
