@@ -11,10 +11,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    every kernel's registers and spills are printed, and a spill fails;
 3. kernels on edge rows (NaN, +-inf, zeros, ties, -0.0, subnormals) at
    blocks 128 to 4,096 and at the main path's shapes, each against its plain
-   version on the card (bit-exact), timed (device time by torch.profiler,
-   call time by CUDA events) beside its memory bound, a copy_ of the same
-   bytes and, where one exists, a PyTorch library call computing the same
-   function;
+   version on the card (bit-exact; the quantizer in f32 and bf16), timed
+   (device time by torch.profiler, call time by CUDA events) beside its
+   memory bound, a copy_ of the same bytes and, where one exists, a PyTorch
+   library call computing the same function;
 4. main paths: synchronous C2DFB on the 20 Newsgroups-width coefficient-
    tuning task (p = 101,631, c = 20, m = 10 nodes on a ring, label skew 0.8,
    n = 2,000 synthetic documents), K = 10, T = 3 rounds, once with
@@ -29,10 +29,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    back.  kernel_quant: the inner bytes are 409,704,000 and every quant
    payload re-encodes to itself and decodes within 1 ulp;
 6. baselines at the same width, 2 rounds each: MDBO, MADSBO, C2DFB-nc with
-   kernel_quant (the quantizer launches 4*K a round) and F2SA;
-7. small input: C2DFB with kernel_topk and with kernel_quant on a small
+   kernel_quant (the quantizer launches 4*K a round) and F2SA; then one MDBO
+   and one MADSBO round priced by a WAN fabric, whose wire bytes must equal
+   the closed form;
+7. the fabric path: run(fabric=WAN with lognormal stragglers,
+   schedule=link dropout, obs=a JSONL sink) at the same width with
+   kernel_topk, T = 3: launch counts, every round's wire bytes against the
+   closed form, the JSONL's round and node records and oracle calls, and
+   the host seconds of the codec measurement and of the fabric simulation;
+8. small input: C2DFB with kernel_topk and with kernel_quant on a small
    task through the kernels and through the plain versions on the host,
-   which must agree (the quantizer runs share their samples).
+   which must agree (the quantizer runs share their samples); and a run on
+   an Erdos-Renyi graph with a dropout schedule and a fabric, whose
+   simulated seconds and wire bytes must be equal on the card and the host.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -258,8 +267,10 @@ MAIN_INSTANCES = {
     "block_topk": "warp_topk_kernel<float, 32, 32>",
     "pack_sparse_blocks": "pack_kernel",
     "unpack_sparse_blocks": "unpack_kernel",
-    "quantize": "quantize_kernel",
+    "quantize": "quantize_kernel<float>",
 }
+# the instance of the bf16 quantizer (phase 3; the main path is f32)
+QUANT_BF16_INSTANCE = "quantize_kernel<__nv_bfloat16>"
 
 
 def ptxas_report(logs: dict) -> dict:
@@ -398,9 +409,39 @@ def phase_kernels(dev) -> dict:
     return res
 
 
+def quant_edges(dev, gen) -> int:
+    """B4 f32 and bf16 on the edge rows (NaN, +-inf, zeros, ties, -0.0,
+    subnormals) at every EDGE_BLOCKS block and bits 2, 4 and 8, bit for bit
+    against quantize_ref (values and scales, NaN positions equal).  Returns
+    the number of cases checked."""
+    from repro_torch.kernels.quantize import quantize_kernel
+    from repro_torch.kernels.ref import quantize_ref
+
+    cases = 0
+    for block in EDGE_BLOCKS:
+        x = edge_rows(block, gen, dev)
+        for dt in (torch.float32, torch.bfloat16):
+            xin = x.to(dt)
+            u = torch.rand(x.shape, generator=gen, device=dev, dtype=dt)
+            for b in (2, 4, 8):
+                got, scales = quantize_kernel(xin, u, b)
+                want, wscales = quantize_ref(xin, u, b)
+                torch.cuda.synchronize()
+                what = f"quantize {dt} block {block} bits {b}"
+                check(got.dtype == scales.dtype == dt, f"{what}: result dtype {got.dtype}, scales {scales.dtype}")
+                check(same(got, want), f"{what} differs from its plain version on the edge rows")
+                check(same(scales, wscales), f"{what}: scales differ from the plain version's")
+                cases += 1
+    print(f"[kernels] quantize edge rows: {cases} cases (f32 and bf16) at blocks {EDGE_BLOCKS}, "
+          f"bit-exact against quantize_ref")
+    return cases
+
+
 def kernel_quantize(dev, x, gen) -> dict:
     """B4 at the main path's launch shape (bits 4), bits 2 and 8 on a slice,
-    a NaN row and an all-zero row; each bit for bit against quantize_ref."""
+    a NaN row and an all-zero row; each bit for bit against quantize_ref.
+    Then B4 bf16 at the same shape (samples drawn in bf16), bit for bit and
+    timed; and both on the edge rows."""
     from repro_torch.kernels.quantize import quantize_kernel
     from repro_torch.kernels.ref import quantize_ref
 
@@ -445,6 +486,30 @@ def kernel_quantize(dev, x, gen) -> dict:
         rand_ms=draw["ms"], rand_call_ms=draw["call_ms"], rand_bound_ms=bound_ms(x.numel() * 4),
     )
     print(f"[kernels] quantize: {res}")
+
+    # bf16: x rounded to bf16, u drawn in bf16 (as KernelQuant draws for a bf16 leaf)
+    xb = x.to(torch.bfloat16)
+    ub = torch.rand(x.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    got, scales = quantize_kernel(xb, ub, bits_main)
+    want, wscales = quantize_ref(xb, ub, bits_main)
+    torch.cuda.synchronize()
+    check(got.dtype == scales.dtype == torch.bfloat16, "quantize bf16 returned another dtype")
+    check(torch.equal(bits(got), bits(want)), f"quantize bf16 ({rows}, {block}) differs from its plain version")
+    check(torch.equal(bits(scales), bits(wscales)), "quantize bf16 scales differ from the plain version's")
+    kt = timed(lambda: quantize_kernel(xb, ub, bits_main))
+    nbytes = 3 * xb.numel() * 2 + rows * 2  # read x and u, write out and the (rows,) scales
+    res["bf16"] = dict(
+        name="quantize_bf16", route="cuda", source=res["source"], replaces=res["replaces"],
+        shape=[rows, block], bits=bits_main, launches=0,  # the main path quantizes f32 leaves
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        ms=kt["ms"], call_ms=kt["call_ms"], timer=kt["timer"],
+        plain_ms=timed(lambda: quantize_ref(xb, ub, bits_main), iters=5)["ms"],
+        bound_ms=bound_ms(nbytes), bound_by="bytes", copy_ms=copy_ms(nbytes), library_ms=None,
+        rand_ms=timed(lambda: torch.rand(x.shape, generator=gen, device=dev, dtype=torch.bfloat16))["ms"],
+        rand_bound_ms=bound_ms(x.numel() * 2),
+    )
+    print(f"[kernels] quantize bf16: {res['bf16']}")
+    quant_edges(dev, gen)
     return res
 
 
@@ -662,6 +727,139 @@ def phase_baselines(dev, bundle):
     return launches
 
 
+# the fabric phase: the main path priced by a WAN fabric with lognormal
+# stragglers under a link-dropout schedule, with the telemetry spine on
+FABRIC = dict(profile="wan", straggler="lognormal", sigma=0.6, compute_s=0.02, seed=0)
+DROPOUT = dict(p_drop=0.2, seed=0)
+
+
+def phase_fabric(dev, bundle) -> dict:
+    """run(fabric=, schedule=, obs=) at TASK's width with kernel_topk, T
+    rounds: block top-k launches 4*K a round, 4*K more in obs's one cost
+    round and 4 for the phases (each of the four messages compressed once
+    on the final state), pack 4*m times for the phases (each node's
+    messages encoded once); every round's wire bytes equal the closed form; the JSONL holds
+    T round and T*m node records with the fleet's oracle calls.  Then the
+    codec measurement and the fabric simulation are timed on the host,
+    each alone (the simulation again on a trace-less fabric, which must
+    give the run's seconds and bytes)."""
+    import tempfile
+
+    from repro_torch.core.c2dfb import C2DFBConfig, round_phases, run
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import _build
+    from repro_torch.net import LinkDropoutSchedule, NetTrace, edge_list, make_fabric
+    from repro_torch.obs import JsonlSink, Obs, read_jsonl
+
+    m, p, c, K = TASK["m"], TASK["p"], TASK["c"], CFG["K"]
+    topo, cfg = ring(m), C2DFBConfig(**CFG)
+    fabric = make_fabric(topo, trace=NetTrace(), **FABRIC)
+    schedule = LinkDropoutSchedule(topo, **DROPOUT)
+    with tempfile.TemporaryDirectory() as tmp:
+        obs = Obs(sink=JsonlSink(f"{tmp}/run.jsonl"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, mets = run(bundle.problem, topo, cfg, bundle.x0, bundle.y0, T=T, device=dev,
+                          schedule=schedule, fabric=fabric, obs=obs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        obs.close()
+        records = read_jsonl(f"{tmp}/run.jsonl")
+        events = obs.save_timeline(f"{tmp}/trace.json", trace=fabric.trace, node_records=records)
+    spans = {r["label"]: r["wall_seconds"] for r in records if r["kind"] == "timing"}
+    print(f"[fabric] run(fabric=wan lognormal, schedule=dropout 0.2, obs=jsonl) {T} rounds in {wall!r} s "
+          f"(spans {spans}), launches {counts}, peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    want_topk = 4 * K * T + 4 * K + 4  # the rounds, obs's cost round, the phases' four messages
+    check(counts["block_topk"] == want_topk,
+          f"block_topk launched {counts['block_topk']} times, want {4 * K * T} (rounds) + {4 * K} (cost round) "
+          f"+ 4 (one compression a message measured for the phases)")
+    check(counts["pack_sparse_blocks"] == 4 * m, f"pack launched {counts['pack_sparse_blocks']} times, want {4 * m}")
+    for k in ("sim_seconds", "wire_bytes"):
+        check(isinstance(mets[k], np.ndarray) and mets[k].shape == (T,), f"{k} is not a host array of shape ({T},)")
+    check(mets["wire_bytes"].dtype == np.int64 and mets["sim_seconds"].dtype == np.float64, "fabric metric dtypes")
+
+    # the codec measurement alone: each node's four inner messages on the final state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phases, labels = round_phases(state, cfg, topo)
+    codec_s = time.perf_counter() - t0
+    per_node = [0] * m  # each node's four inner messages: every out-edge of i carries i's bytes
+    for ph in (phases[2], phases[3], phases[2 + 2 * K], phases[3 + 2 * K]):  # y d, y s, z d, z s
+        for i, nbytes in {i: b for (i, _), b in ph.items()}.items():
+            per_node[i] += nbytes
+    dense = p * 4  # 406,524 B: one node's x (or s_x) in f32
+    sim = make_fabric(topo, **FABRIC)
+    sim_s = 0.0
+    for t in range(T):
+        act = schedule.active_edges(t)
+        want = 2 * len(act) * dense + K * sum(per_node[i] for i, _ in act)
+        got = int(mets["wire_bytes"][t])
+        print(f"[fabric] round {t}: sim_seconds {float(mets['sim_seconds'][t])!r} wire_bytes {got} "
+              f"({len(act)} of {len(edge_list(topo))} directed edges active; closed form {want}); "
+              f"measured_bytes {int(mets['measured_bytes'][t])}")
+        check(got == want, f"round {t}: wire_bytes {got}, closed form {want}")
+        t0 = time.perf_counter()
+        rep = sim.simulate_round([{e: b for e, b in ph.items() if e in set(act)} for ph in phases], t, labels=labels)
+        sim_s += time.perf_counter() - t0
+        check(rep["wire_bytes"] == got and rep["sim_seconds"] == float(mets["sim_seconds"][t]),
+              f"round {t}: a second simulation of the same phases gave another result")
+    undropped = 2 * (K * sum(per_node) + 2 * dense * m)
+    print(f"[fabric] host seconds: codec measurement (round_phases, {4 * m} packs) {codec_s!r}, fabric simulation "
+          f"({T} rounds, {len(phases)} phases each) {sim_s!r}; an undropped round would put {undropped} bytes on "
+          f"the wire, {undropped / int(mets['measured_bytes'][-1])!r} x the last round's measured_bytes")
+
+    rounds = [r for r in records if r["kind"] == "round"]
+    nodes = [r for r in records if r["kind"] == "node"]
+    print(f"[fabric] JSONL: {len(rounds)} round and {len(nodes)} node records, {len(records)} in all; "
+          f"oracle calls a round {rounds[0]['oracle_calls']}; compute_flops {rounds[0]['compute_flops']!r} "
+          f"(FlopCounterMode); memory_peak_bytes {rounds[0]['memory_peak_bytes']}; merged trace {len(events)} events")
+    check(len(rounds) == T and len(nodes) == T * m, "wrong record counts")
+    fleet = {"ul_grad": 3 * m, "ll_grad": 2 * (K + 1) * m, "hvp": 0, "jvp": 0}  # {30, 220, 0, 0} at TASK, CFG
+    check(all(r["oracle_calls"] == fleet for r in rounds), f"oracle calls differ from the closed form {fleet}")
+    check(all(r["compute_flops"] and r["compute_flops"] > 0 for r in rounds), "no FLOPs counted")
+    check(isinstance(rounds[0]["memory_peak_bytes"], int) and rounds[0]["memory_peak_bytes"] > 0, "no peak memory")
+    check([r["wire_bytes"] for r in rounds] == [int(b) for b in mets["wire_bytes"]], "records carry other bytes")
+    check(set(spans) == {"cost_analysis", "scan"}, f"timing spans {sorted(spans)}")
+    check(len(events) > len(fabric.trace.transfers), "the merged trace lacks events")
+    return dict(block_topk=counts["block_topk"], pack_sparse_blocks=counts["pack_sparse_blocks"])
+
+
+def phase_baselines_fabric(dev, bundle) -> None:
+    """One MDBO and one MADSBO round with fabric= at TASK's width: every
+    dense broadcast crosses both ring links of its sender, so a round puts
+    (K*dy + N*dy + dx) * 4 * 2m bytes on the wire (Q for N with MADSBO)."""
+    from repro_torch.core import baselines as B
+    from repro_torch.core.topology import ring
+    from repro_torch.net import make_fabric
+
+    m, p, c = TASK["m"], TASK["p"], TASK["c"]
+    topo = ring(m)
+    dx, dy = p, p * c
+    for name, cfg, init, step, extra in (
+        ("mdbo", B.MDBOConfig(), B.mdbo_init(bundle.x0, bundle.y0), B.mdbo_round, "neumann_N"),
+        ("madsbo", B.MADSBOConfig(), B.madsbo_init(bundle.problem, bundle.x0, bundle.y0), B.madsbo_round, "Q"),
+    ):
+        fabric = make_fabric(topo, **FABRIC)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, mets = step(init, bundle.problem, topo, cfg, fabric=fabric, round_idx=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = (cfg.K * dy + getattr(cfg, extra) * dy + dx) * 4 * 2 * m
+        print(f"[baselines fabric] {name}: wall {wall!r} s, wire_bytes {mets['wire_bytes']} (closed form {want}), "
+              f"sim_seconds {mets['sim_seconds']!r}")
+        check(mets["wire_bytes"] == want, f"{name} wire_bytes {mets['wire_bytes']}, want {want}")
+        check(bool(torch.isfinite(mets["hypergrad_norm"])), f"{name} hypergradient is not finite")
+
+
+# the Erdős–Rényi graph make_topology("er", 10, p=0.4, seed=0) draws
+ER_EDGES = [(0, 1), (0, 5), (0, 6), (1, 2), (1, 4), (1, 6), (1, 7), (2, 6), (2, 7),
+            (2, 8), (2, 9), (3, 7), (4, 8), (5, 9), (6, 8), (6, 9), (7, 9), (8, 9)]
+
+
 class HostDraws:
     """A random source that draws on the host from a seeded CPU generator
     and copies to the run's device, so a card run and a host run share
@@ -670,8 +868,8 @@ class HostDraws:
     def __init__(self, seed: int):
         self.gen = torch.Generator().manual_seed(seed)
 
-    def uniform(self, shape, device):
-        return torch.rand(shape, generator=self.gen).to(device)
+    def uniform(self, shape, device, dtype=torch.float32):
+        return torch.rand(shape, generator=self.gen, dtype=dtype).to(device)
 
     def choice(self, n, k, device):
         return torch.randperm(n, generator=self.gen)[:k].to(device)
@@ -709,6 +907,35 @@ def phase_small_input(dev):
               f"small input {cfg.compressor}: measured_bytes differ")
         print(f"[small] {cfg.compressor}: card and host agree (rtol {TOL['rtol']}, atol {TOL['atol']}); "
               f"measured_bytes {mc['measured_bytes'].tolist()}")
+    phase_small_fabric(dev)
+
+
+def phase_small_fabric(dev):
+    """A small run on the Erdős–Rényi graph (its 18 edges checked) with a
+    dropout schedule and a WAN fabric, on the card and on the host: the
+    states agree within TOL, sim_seconds and wire_bytes exactly."""
+    from repro_torch.core.c2dfb import C2DFBConfig, run
+    from repro_torch.core.topology import make_topology
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.data.bilevel_tasks import coefficient_tuning_task
+    from repro_torch.net import LinkDropoutSchedule, make_fabric
+    from repro_torch.net.dynamic import base_edges
+
+    topo = make_topology("er", 10, p=0.4, seed=0)
+    check(base_edges(topo) == ER_EDGES, f"er(10, 0.4, seed 0) drew {base_edges(topo)}")
+    cfg = C2DFBConfig(K=3, compressor="kernel_topk", comp_ratio=0.2, comp_block=128)
+    out = {}
+    for d in ("cpu", dev):
+        b = coefficient_tuning_task(m=10, n=400, p=64, c=4, seed=0, device=d)
+        out[d] = run(b.problem, topo, cfg, b.x0, b.y0, T=3, device=d,
+                     schedule=LinkDropoutSchedule(topo, **DROPOUT), fabric=make_fabric(topo, **FABRIC))
+    (sc, mc), (sg, mg) = out["cpu"], out[dev]
+    for la, lb in zip(tree_leaves(sc.x) + tree_leaves(sc.inner_y.d), tree_leaves(sg.x) + tree_leaves(sg.inner_y.d)):
+        check(torch.allclose(lb.cpu(), la, **TOL), "small fabric run: the card's state differs from the host's")
+    for k in ("sim_seconds", "wire_bytes"):
+        check(np.array_equal(mc[k], mg[k]), f"small fabric run: {k} differs between card and host")
+    print(f"[small] er(10, 0.4) with dropout and a WAN fabric: card and host agree; wire_bytes "
+          f"{mg['wire_bytes'].tolist()}, sim_seconds {mg['sim_seconds'].tolist()}")
 
 
 def main() -> int:
@@ -737,11 +964,13 @@ def main() -> int:
 
     # 3. kernels at main-path shapes
     kernels = phase_kernels(dev)
-    for name, fn in MAIN_INSTANCES.items():
+    for entry, fn in [(kernels[n], f) for n, f in MAIN_INSTANCES.items()] + [
+        (kernels["quantize"]["bf16"], QUANT_BF16_INSTANCE)
+    ]:
         found = [v for (_, f), v in ptxas.items() if f == fn]
         check(len(found) == 1, f"ptxas reported no kernel {fn}")
-        kernels[name]["registers"], st, ld = found[0]
-        kernels[name]["spill_bytes"] = st + ld
+        entry["registers"], st, ld = found[0]
+        entry["spill_bytes"] = st + ld
     # 4. main paths: kernel_topk, then kernel_quant on the same task
     bundle = build_task(dev)
     state, cfg, topo, kernels["block_topk"]["launches"] = phase_main_path(dev, bundle, CFG, "block_topk")
@@ -753,10 +982,15 @@ def main() -> int:
     kernels["unpack_sparse_blocks"]["launches"] = unpack_launches
     phase_wire_quant(qstate, qcfg, topo, gen)
     del state, qstate
-    # 6. the paper's baselines at full width
+    # 6. the paper's baselines at full width, then MDBO and MADSBO priced by a fabric
     kernels["quantize"]["c2dfb_nc_launches"] = phase_baselines(dev, bundle)
+    phase_baselines_fabric(dev, bundle)
+    # 7. the main path priced by a fabric, under a schedule, with telemetry
+    fab = phase_fabric(dev, bundle)
+    kernels["block_topk"]["fabric_launches"] = fab["block_topk"]
+    kernels["pack_sparse_blocks"]["fabric_launches"] = fab["pack_sparse_blocks"]
     del bundle
-    # 7. small input, card against host
+    # 8. small input, card against host (with a fabric and a schedule too)
     phase_small_input(dev)
 
     print(json.dumps({"kernels": list(kernels.values())}))

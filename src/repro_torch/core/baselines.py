@@ -20,7 +20,8 @@ not meter, counts ``ll_grad`` per lower-level gradient step and three
 ``ul_grad`` (the x-partials of f, g at y and g at z) per hypergradient.
 C2DFB(nc) draws from ``generator`` in the order of
 `repro_torch.core.compression` (per step: the d message, then the s one).
-The fabric-priced phases and the async rounds come with later slices.
+MDBO and MADSBO take a network ``fabric`` (their dense phases priced as
+the reference prices them); the async rounds come with a later slice.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.bilevel_problem import BilevelProblem, grad_of_sum
-from repro_torch.core.c2dfb import _mixing_matrix
+from repro_torch.core.c2dfb import _mixing_matrix, price_round
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gossip import mix_delta_dense, mix_step_dense
 from repro_torch.core.inner_loop import compress_stacked
@@ -49,6 +50,7 @@ from repro_torch.core.types import (
     tree_sq_norm,
     tree_unflatten,
 )
+from repro_torch.net.fabric import edge_list
 
 # ---------------------------------------------------------------------------
 # second-order oracles by double backward (never materialize Hessians)
@@ -136,9 +138,12 @@ def mdbo_init(x0: Tree, y0: Tree) -> MDBOState:
 
 def mdbo_round(
     state: MDBOState, problem: BilevelProblem, topo: Topology, cfg: MDBOConfig,
-    W: torch.Tensor | None = None,
+    W: torch.Tensor | None = None, fabric=None, round_idx: int = 0,
 ) -> tuple[MDBOState, dict]:
-    """One MDBO round; ``W`` overrides the static mixing matrix."""
+    """One MDBO round; ``W`` overrides the static mixing matrix.  ``fabric``
+    (a `repro_torch.net.fabric.NetworkFabric`) adds ``wire_bytes`` and
+    ``sim_seconds`` of `mdbo_round_phases`, priced as round ``round_idx``."""
+    W_override = W
     W = _mixing_matrix(topo, state.x) if W is None else W
     x = state.x
     y = value_gossip_scan(state.y, W, cfg.gamma, cfg.K, _ll_update(problem, x, cfg.eta_y))
@@ -166,7 +171,10 @@ def mdbo_round(
         "x_consensus_err": consensus_error(x),
         "x_node_dist": node_consensus_dist(x),
     }
-    return MDBOState(x=x, y=y, t=state.t + 1), metrics
+    new_state = MDBOState(x=x, y=y, t=state.t + 1)
+    if fabric is not None:
+        price_round(fabric, mdbo_round_phases(new_state, cfg, fabric.topo), W_override, round_idx, metrics)
+    return new_state, metrics
 
 
 def mdbo_round_wire_bytes(state: MDBOState, cfg: MDBOConfig, topo: Topology) -> float:
@@ -175,6 +183,21 @@ def mdbo_round_wire_bytes(state: MDBOState, cfg: MDBOConfig, topo: Topology) -> 
     All uncompressed fp32."""
     dx, dy = tree_count(state.x), tree_count(state.y)
     return float((dx + dy * cfg.K + dy * cfg.neumann_N) * 4 * topo.m)
+
+
+def _dense_phases(topo: Topology, sizes_and_labels: list[tuple[int, str]]) -> tuple[list, list]:
+    """Barrier phases of uncompressed f32 broadcasts for the baselines."""
+    edges = edge_list(topo)
+    phases = [{e: d * 4 for e in edges} for d, _ in sizes_and_labels]
+    return phases, [lbl for _, lbl in sizes_and_labels]
+
+
+def mdbo_round_phases(state: MDBOState, cfg: MDBOConfig, topo: Topology) -> tuple[list, list]:
+    dx, dy = tree_count(state.x), tree_count(state.y)
+    sizes = [(dy, f"ll{k}/y") for k in range(cfg.K)]
+    sizes += [(dy, f"neumann{n}/v") for n in range(cfg.neumann_N)]
+    sizes += [(dx, "ul/x")]
+    return _dense_phases(topo, sizes)
 
 
 # ---------------------------------------------------------------------------
@@ -210,9 +233,12 @@ def madsbo_init(problem: BilevelProblem, x0: Tree, y0: Tree) -> MADSBOState:
 
 def madsbo_round(
     state: MADSBOState, problem: BilevelProblem, topo: Topology, cfg: MADSBOConfig,
-    W: torch.Tensor | None = None,
+    W: torch.Tensor | None = None, fabric=None, round_idx: int = 0,
 ) -> tuple[MADSBOState, dict]:
-    """One MADSBO round; ``W`` overrides the static mixing matrix."""
+    """One MADSBO round; ``W`` overrides the static mixing matrix.
+    ``fabric`` adds ``wire_bytes`` and ``sim_seconds`` of
+    `madsbo_round_phases`, priced as round ``round_idx``."""
+    W_override = W
     W = _mixing_matrix(topo, state.x) if W is None else W
     x, u = state.x, state.u
     y = value_gossip_scan(state.y, W, cfg.gamma, cfg.K, _ll_update(problem, x, cfg.eta_y))
@@ -240,12 +266,23 @@ def madsbo_round(
         "x_consensus_err": consensus_error(x),
         "x_node_dist": node_consensus_dist(x),
     }
-    return MADSBOState(x=x, y=y, v=v, u=u, t=state.t + 1), metrics
+    new_state = MADSBOState(x=x, y=y, v=v, u=u, t=state.t + 1)
+    if fabric is not None:
+        price_round(fabric, madsbo_round_phases(new_state, cfg, fabric.topo), W_override, round_idx, metrics)
+    return new_state, metrics
 
 
 def madsbo_round_wire_bytes(state: MADSBOState, cfg: MADSBOConfig, topo: Topology) -> float:
     dx, dy = tree_count(state.x), tree_count(state.y)
     return float((dx + dy * cfg.K + dy * cfg.Q) * 4 * topo.m)
+
+
+def madsbo_round_phases(state: MADSBOState, cfg: MADSBOConfig, topo: Topology) -> tuple[list, list]:
+    dx, dy = tree_count(state.x), tree_count(state.y)
+    sizes = [(dy, f"ll{k}/y") for k in range(cfg.K)]
+    sizes += [(dy, f"higp{q}/v") for q in range(cfg.Q)]
+    sizes += [(dx, "ul/x")]
+    return _dense_phases(topo, sizes)
 
 
 # ---------------------------------------------------------------------------

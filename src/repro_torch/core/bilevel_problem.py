@@ -17,7 +17,8 @@ yields zeros, not None.
 
 ``oracle_calls`` counts node-stacked oracle evaluations by kind — one
 ``ll_grad`` per y/z gradient (h = f + lam*g is ONE oracle) and three
-``ul_grad`` per hypergradient, as the reference's ``record_oracle`` sites.
+``ul_grad`` per hypergradient, as the reference's ``record_oracle`` sites
+(`repro_torch.obs.compute.record_oracle` also counts them module-wide).
 ``psi`` (true hyper-objective at the consensus mean) is for evaluation
 only — algorithms never touch it.
 """
@@ -30,6 +31,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.types import Tree, broadcast_nodes, tree_leaves, tree_map, tree_unflatten
+from repro_torch.obs.compute import record_oracle
 
 
 def grad_of_sum(fn: Callable, args: tuple, argnum: int) -> Tree:
@@ -63,7 +65,7 @@ class BilevelProblem:
     oracle_calls: dict = dataclasses.field(default_factory=dict, compare=False)
 
     def record_oracle(self, kind: str, n: int = 1) -> None:
-        self.oracle_calls[kind] = self.oracle_calls.get(kind, 0) + int(n)
+        record_oracle(kind, n, self.oracle_calls)
 
     # ---------------- node-stacked oracles --------------------------------
     def grad_y_h(self, lam):

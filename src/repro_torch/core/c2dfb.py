@@ -16,15 +16,19 @@ exact wire bytes (``measured_bytes``), counted on the device.
 caller passes ``device="cpu"``).  Every entry point takes ``generator``,
 the random source of a stochastic compressor (a ``torch.Generator`` on the
 run's device, or a source object); draws follow the order written down in
-`repro_torch.core.compression`, and deterministic compressors ignore it.  The fabric, schedule, async, transport and
-telemetry arguments of the reference wait for later slices of the port.
+`repro_torch.core.compression`, and deterministic compressors ignore it.
+``run`` takes a topology ``schedule``, a network ``fabric`` (host numpy)
+and a telemetry handle ``obs``; the reference's async and transport
+arguments wait for later slices of the port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -36,6 +40,7 @@ from repro_torch.core.inner_loop import (
     inner_init,
     inner_loop,
     inner_message_bytes,
+    inner_round_phases,
     inner_wire_bytes_per_round,
     refresh_tracker,
 )
@@ -50,7 +55,11 @@ from repro_torch.core.types import (
     tree_map,
     tree_sq_norm,
 )
+from repro_torch.net.dynamic import validate_schedule_stack
+from repro_torch.net.fabric import edge_list, edges_from_weights, mask_phases
 from repro_torch.net.wire import codec_for
+from repro_torch.obs.compute import c2dfb_oracle_calls, memory_peak_bytes, round_cost
+from repro_torch.obs.core import as_obs, scan_heartbeat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,15 +181,70 @@ def c2dfb_round(
     topo: Topology,
     cfg: C2DFBConfig,
     W: torch.Tensor | None = None,
+    fabric=None,
+    round_idx: int = 0,
 ) -> tuple[C2DFBState, dict]:
-    """One synchronous outer round.  ``W`` overrides the static mixing matrix."""
+    """One synchronous outer round.  ``W`` overrides the static mixing
+    matrix (a `repro_torch.net.dynamic` schedule's round matrix).
+    ``fabric`` (a `repro_torch.net.fabric.NetworkFabric`) adds
+    codec-measured ``wire_bytes`` (int) and simulated ``sim_seconds``
+    (float) to the round metrics, priced as round ``round_idx``; with a
+    ``W`` override only the edges W activates carry traffic.  Measuring
+    the phases draws after the round (see `round_phases`)."""
+    W_override = W
     W = _mixing_matrix(topo, state.x) if W is None else W
     compressor = cfg.make_compressor()
 
     def inner_fn(st, gen, grad_fn, eta, tag):
         return inner_loop(st, gen, grad_fn, W, compressor, cfg.gamma_in, eta, cfg.K)
 
-    return c2dfb_round_core(state, generator, problem, W, cfg, inner_fn)
+    new_state, metrics = c2dfb_round_core(state, generator, problem, W, cfg, inner_fn)
+    if fabric is not None:
+        price_round(fabric, round_phases(new_state, cfg, fabric.topo, generator), W_override, round_idx, metrics)
+    return new_state, metrics
+
+
+def _host(v):
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else v
+
+
+def price_round(fabric, phases_and_labels, W_override, round_idx: int, metrics: dict) -> None:
+    """Add the fabric's ``wire_bytes`` and ``sim_seconds`` of one round's
+    phases to ``metrics`` (a round of C2DFB or of a baseline); a ``W``
+    override (a schedule's round matrix) deactivates the links it zeroes,
+    which are not priced."""
+    phases, labels = phases_and_labels
+    if W_override is not None:
+        phases = mask_phases(phases, edges_from_weights(_host(W_override)))
+    rep = fabric.simulate_round(phases, round_idx, labels=labels)
+    metrics["wire_bytes"] = rep["wire_bytes"]
+    metrics["sim_seconds"] = rep["sim_seconds"]
+
+
+def round_phases(
+    state: C2DFBState, cfg: C2DFBConfig, topo: Topology, generator=None
+) -> tuple[list, list]:
+    """One outer round as a sequence of barrier phases with per-edge byte
+    payloads: 2 uncompressed broadcasts (x, s_x) + 2 inner loops x K steps
+    x 2 codec-measured compressed messages (each node's message measured
+    once on the current residuals and priced on each of its out-edges).
+
+    A stochastic compressor draws the messages from ``generator`` in this
+    order: the y loop's d then s message, then the z loop's (leaves in
+    sorted-key order within a message), where the reference draws them from
+    ``split(fold_in(key, 0x5EED))``.  The codec bytes of ``quant`` and
+    ``kernel_quant`` do not depend on the draws; a ``randk`` message
+    carries the drawn coordinates whose residual is nonzero."""
+    edges = edge_list(topo)
+    dx = tree_count(state.x)
+    dense = {e: dx * 4 for e in edges}
+    phases, labels = [dense, dense], ["out/x", "out/s_x"]
+    comp = cfg.make_compressor()
+    for name, inner in (("y", state.inner_y), ("z", state.inner_z)):
+        ph, lb = inner_round_phases(inner, comp, topo, generator, cfg.K)
+        phases += ph
+        labels += [f"{name}/{s}" for s in lb]
+    return phases, labels
 
 
 def round_wire_bytes_measured(
@@ -233,21 +297,124 @@ def run(
     T: int,
     generator=None,
     device: str | torch.device | None = None,
+    schedule=None,
+    fabric=None,
+    obs=None,
+    async_mode: str | None = None,
+    mixing_damping: str = "none",
+    transport=None,
 ) -> tuple[C2DFBState, dict]:
     """Run T synchronous outer rounds; returns the final state and the
     metrics stacked over rounds (tensors with a leading axis of T, on the
     run's device).  The problem's data and x0/y0 must lie on ``device``
-    (``cuda`` unless ``device="cpu"``); x0/y0 are left untouched."""
+    (``cuda`` unless ``device="cpu"``); x0/y0 are left untouched.
+
+    ``schedule`` (a `repro_torch.net.dynamic.TopologySchedule`) swaps the
+    static W for the schedule's per-round matrices (validated first; with
+    a fabric, every active edge must be a base edge).  ``fabric`` (a
+    `repro_torch.net.fabric.NetworkFabric`) appends a simulated wall-clock
+    timeline, as the reference does: the phases are measured ONCE, on the
+    final state's residuals (after the T rounds' draws), and priced for
+    every round t, keeping only round t's active edges under a schedule;
+    metrics gain ``sim_seconds`` (float64) and ``wire_bytes`` (int64) host
+    numpy arrays of shape (T,).
+
+    ``obs`` (a `repro_torch.obs.Obs`, or any object with ``emit(record)``)
+    streams the reference's records: a ``cost_analysis`` span (one round's
+    FLOPs, counted on a throwaway random source, so the run's draws and
+    trajectory are those of a run without ``obs``), a ``scan`` span around
+    the rounds, heartbeats every ``heartbeat_every`` rounds, then one
+    ``round`` record a round (fleet oracle calls; FLOPs; peak device memory
+    on round 0) and m ``node`` records a round.
+
+    ``async_mode``, ``mixing_damping`` and ``transport`` are the
+    reference's asynchronous engine and transports, not ported yet: passing
+    them raises a ValueError."""
+    if async_mode is not None or mixing_damping != "none":
+        raise ValueError(
+            "async_mode and mixing_damping belong to the asynchronous gossip "
+            "engine, which the port does not have yet (a later slice ports it)"
+        )
+    if transport is not None:
+        raise ValueError(
+            "transport= (simulated and device transports) is not ported yet: "
+            "a later slice ports the transports; pass fabric= to price a run"
+        )
     device = resolve_device(device)
     _check_on(x0, device, "x0")
     _check_on(y0, device, "y0")
     _check_on(problem.data_f, device, "the problem's data")
     _check_on(problem.data_g, device, "the problem's data")
+    obs = as_obs(obs)
     state = init_state(problem, cfg, x0, y0)
-    W = _mixing_matrix(topo, x0)
+    if schedule is not None:
+        # the base-edge subset check only binds when a fabric prices the
+        # run (non-base edges cannot be priced)
+        Ws = validate_schedule_stack(
+            schedule.stack(T), T, topo.m, base=topo if fabric is not None else None
+        )
+        Ws = torch.as_tensor(Ws, dtype=torch.float32, device=device)
+    else:
+        Ws = _mixing_matrix(topo, x0).expand(T, topo.m, topo.m)
+
+    cost = mem0 = fleet_oracles = None
+    if obs is not None:
+        # one round body's FLOPs (memoized), on a throwaway random source;
+        # the round builds new tensors, so the state is left as it was
+        with obs.span("cost_analysis", engine="sync"):
+            calls = dict(problem.oracle_calls)
+            cost = round_cost(
+                ("c2dfb/sync", id(problem), id(topo), cfg),
+                lambda st, gen, W0: c2dfb_round(st, gen, problem, topo, cfg, W=W0),
+                state, torch.Generator(device=device).manual_seed(0), Ws[0],
+                expected_oracles=c2dfb_oracle_calls(cfg),
+                label="c2dfb/sync",
+            )
+            problem.oracle_calls.clear()
+            problem.oracle_calls.update(calls)
+        fleet_oracles = {k: v * topo.m for k, v in c2dfb_oracle_calls(cfg).items()}
+        mem0 = memory_peak_bytes(device)
+
     rounds = []
-    for _ in range(T):
-        state, metrics = c2dfb_round(state, generator, problem, topo, cfg, W=W)
-        rounds.append(metrics)
+    with obs.span("scan", engine="sync") if obs is not None else contextlib.nullcontext():
+        for t in range(T):
+            state, metrics = c2dfb_round(state, generator, problem, topo, cfg, W=Ws[t])
+            scan_heartbeat(obs, "sync", t, metrics)
+            rounds.append(metrics)
+        if obs is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
     stacked = {k: torch.stack([r[k] for r in rounds]) for k in rounds[0]} if rounds else {}
+
+    if fabric is not None:
+        phases, labels = round_phases(state, cfg, fabric.topo, generator)
+        sim_s, wire_b = [], []
+        for t in range(T):
+            phases_t = phases
+            if schedule is not None:
+                # only the round's active links carry traffic
+                act = set(schedule.active_edges(t))
+                phases_t = [{e: b for e, b in ph.items() if e in act} for ph in phases]
+            rep = fabric.simulate_round(phases_t, t, labels=labels)
+            sim_s.append(rep["sim_seconds"])
+            wire_b.append(rep["wire_bytes"])
+        stacked["sim_seconds"] = np.asarray(sim_s)
+        stacked["wire_bytes"] = np.asarray(wire_b, dtype=np.int64)
+
+    if obs is not None:
+        host = {k: np.asarray(_host(v)) for k, v in stacked.items()}
+        for t in range(T):
+            obs.round(
+                "sync", t, {k: v[t] for k, v in host.items()},
+                oracle_calls=fleet_oracles,
+                compute_flops=cost.flops,
+                hbm_bytes=cost.hbm_bytes,
+                compile_seconds=cost.compile_seconds if t == 0 else None,
+                memory_peak_bytes=mem0 if t == 0 else None,
+            )
+            # node rows: per-node consensus distance; byte and staleness
+            # signals stay None (the barrier path accounts bytes fleet-wide,
+            # and all ages are zero)
+            x_nd = host["x_node_dist"][t]
+            for i in range(x_nd.shape[0]):
+                obs.node("sync", t, i, {"x_dist": x_nd[i], "compute_flops": cost.flops / topo.m})
     return state, stacked

@@ -15,7 +15,10 @@ Rescaled around one of them) draw from an explicit random source, where the
 reference passes keys.  ``generator`` is a ``torch.Generator`` on the run's
 device (wrapped by ``TorchSource``) or any object with two methods:
 
-* ``uniform(shape, device)``: float32 samples in [0, 1);
+* ``uniform(shape, device, dtype=torch.float32)``: samples in [0, 1) of
+  ``dtype`` (KernelQuant draws in its leaf's dtype, as the reference's
+  ``jax.random.uniform(key, shape, x.dtype)``; a bf16 draw is not an f32
+  draw rounded down);
 * ``choice(n, k, device)``: k distinct indices of range(n), as
   ``jax.random.choice(..., replace=False)`` gives them.
 
@@ -33,9 +36,9 @@ test can walk that tree and replay the reference's draws:
     within a message   leaves in sorted-key order
     within a leaf      one draw per ``compress_nodes`` call, node-major
 
-The one draw of a leaf is ``uniform((m * nb, block))`` for KernelQuant,
-``uniform((m, d))`` for StochasticQuant, and m calls to ``choice(d, k)`` for
-RandK (d: one node's flat leaf size).
+The one draw of a leaf is ``uniform((m * nb, block))`` in the leaf's dtype
+for KernelQuant, ``uniform((m, d))`` for StochasticQuant, and m calls to
+``choice(d, k)`` for RandK (d: one node's flat leaf size).
 
 ``leaf_wire_bytes`` is the analytic float estimate; ``repro_torch.net.wire``
 serializes the real payloads.
@@ -65,8 +68,8 @@ class TorchSource:
     def __init__(self, generator: torch.Generator):
         self.generator = generator
 
-    def uniform(self, shape, device) -> torch.Tensor:
-        return torch.rand(shape, generator=self.generator, device=self.generator.device).to(device)
+    def uniform(self, shape, device, dtype=torch.float32) -> torch.Tensor:
+        return torch.rand(shape, dtype=dtype, generator=self.generator, device=self.generator.device).to(device)
 
     def choice(self, n: int, k: int, device) -> torch.Tensor:
         perm = torch.randperm(n, generator=self.generator, device=self.generator.device)
@@ -80,7 +83,7 @@ def random_source(generator, who: Any):
         raise ValueError(
             f"{who!r} is stochastic and needs a random source: pass generator= "
             "(a torch.Generator on the run's device, or an object with "
-            "uniform(shape, device) and choice(n, k, device))"
+            "uniform(shape, device, dtype) and choice(n, k, device))"
         )
     if isinstance(generator, torch.Generator):
         return TorchSource(generator)
@@ -358,7 +361,8 @@ class Rescaled(Compressor):
 class KernelQuant(Compressor):
     """StochasticQuant backed by the hand-written quantizer kernel, with
     per-block scales.  Every node's blocks of a leaf go to one launch, on
-    one ``uniform((m * nb, block))`` draw."""
+    one ``uniform((m * nb, block))`` draw in the leaf's dtype (f32 or
+    bf16)."""
 
     bits: int = 4
     block: int = 1024
@@ -371,7 +375,7 @@ class KernelQuant(Compressor):
         source = random_source(generator, self)
         m = x.shape[0]
         nb = -(-x[0].numel() // self.block)
-        u = source.uniform((m * nb, self.block), x.device)
+        u = source.uniform((m * nb, self.block), x.device, dtype=x.dtype)
         return quantize_nodes(x, u, bits=self.bits, block=self.block)
 
     def leaf_wire_bytes(self, size):

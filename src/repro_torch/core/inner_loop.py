@@ -23,8 +23,8 @@ objective changes between rounds (x moved), ``refresh_tracker`` re-bases the
 tracker with grad_new - grad_prev, which preserves the tracking invariant.
 
 Every step builds new tensors; no state is updated in place, so a caller's
-initial point survives a run.  The fabric-priced phases come with the
-network slice of the port.
+initial point survives a run.  ``inner_round_phases`` turns one loop into
+the barrier phases the network fabric prices.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gossip import mix_delta_dense
 from repro_torch.core.types import Tree, consensus_error, tree_leaves, tree_map, tree_sq_norm
+from repro_torch.net.fabric import edge_list
 from repro_torch.net.wire import codec_for, scan_tree_bytes
 
 
@@ -177,6 +178,24 @@ def inner_message_bytes(
         m = tree_leaves(q)[0].shape[0]
         out.append([codec.tree_bytes(tree_map(lambda v: v[i], q)) for i in range(m)])
     return out[0], out[1]
+
+
+def inner_round_phases(
+    state: InnerState, compressor: Compressor, topo, generator, K: int
+) -> tuple[list, list]:
+    """K steps x (d-residual, s-residual) barrier phases as per-edge byte
+    dicts for ``NetworkFabric.simulate_round``: each node's two messages
+    are measured once by the codec (one pack launch per node per message
+    for the block-sparse codec) and priced on every out-edge."""
+    bytes_d, bytes_s = inner_message_bytes(state, compressor, generator)
+    edges = edge_list(topo)
+    phase_d = {(i, j): bytes_d[i] for (i, j) in edges}
+    phase_s = {(i, j): bytes_s[i] for (i, j) in edges}
+    phases, labels = [], []
+    for k in range(K):
+        phases += [phase_d, phase_s]
+        labels += [f"in{k}/d", f"in{k}/s"]
+    return phases, labels
 
 
 def inner_wire_bytes_per_round(

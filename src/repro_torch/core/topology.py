@@ -10,13 +10,16 @@ spectral quantities the theory uses:
 
 Graphs are plain adjacency sets with networkx's conventions (a self-loop
 adds 2 to a node's degree), so every W here equals the reference's W
-exactly without importing networkx.  ``erdos_renyi`` depends on networkx's
-random generator and is not ported yet.
+exactly without importing networkx.  ``erdos_renyi`` replays networkx's
+G(n, p) generator with the standard library's ``random``, so it draws the
+reference's graph for the same (m, p, seed).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import random
 from collections import deque
 from typing import Iterable
 
@@ -129,11 +132,33 @@ def two_hop(m: int) -> Topology:
     return _from_edges("two_hop", edges, m, schedule)
 
 
+def gnp_edges(m: int, p: float, seed: int) -> list[tuple[int, int]]:
+    """The edges of networkx's ``gnp_random_graph(m, p, seed=seed)``
+    (``erdos_renyi_graph``): ``random.Random(seed)`` draws one value per
+    pair of ``itertools.combinations(range(m), 2)`` and keeps the pair when
+    it is below p; p >= 1 gives the complete graph and p <= 0 no edge,
+    without a draw."""
+    pairs = itertools.combinations(range(m), 2)
+    if p >= 1:
+        return list(pairs)
+    if p <= 0:
+        return []
+    rng = random.Random(seed)
+    return [e for e in pairs if rng.random() < p]
+
+
 def erdos_renyi(m: int, p: float = 0.4, seed: int = 0) -> Topology:
-    raise ValueError(
-        "topology 'er' (erdos_renyi) is not ported yet: it reproduces "
-        "networkx's random graph generator, which a later slice ports"
-    )
+    """A connected G(m, p) graph: the reference's rejection loop, each
+    attempt seeded from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    for _ in range(100):
+        edges = gnp_edges(m, p, int(rng.integers(1 << 30)))
+        adj = np.zeros((m, m), dtype=bool)
+        for i, j in edges:
+            adj[i, j] = adj[j, i] = True
+        if _connected(adj):
+            return _from_edges(f"er{p}", edges, m)
+    raise RuntimeError("could not sample a connected ER graph")
 
 
 def complete(m: int) -> Topology:

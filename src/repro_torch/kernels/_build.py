@@ -56,6 +56,7 @@ SIGNATURES = {
     },
     "quantize": {
         "quantize_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+        "quantize_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

@@ -5,7 +5,8 @@ They define the EXACT semantics the CUDA kernels in ``csrc/topk_compress.cu``
 and ``csrc/quantize.cu`` reproduce bit for bit.  The top-k bisection runs in
 the input dtype: for bf16 input, ``lo + hi`` and ``mid`` are rounded to bf16
 every round, as the reference computes.  The quantizer is computed op by
-op, each op rounding once, as the reference's jnp oracle is.
+op, each op rounding once to the input dtype (f32 or bf16), as the
+reference's jnp oracle is.
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ exactly what each node's compressor draws.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -23,11 +24,17 @@ class JaxReplay:
     def _next_node_keys(self):
         return list(jax.random.split(next(self._leaf_keys), self.m))
 
-    def uniform(self, shape, device):
+    def uniform(self, shape, device, dtype=torch.float32):
+        """``jax.random.uniform(k, shape, dtype)`` per node: a bf16 draw
+        fills its mantissa from fewer bits, so it is not an f32 draw cast
+        down (the draw's shape does not change its values)."""
         assert not self._node_keys, "a uniform draw inside a leaf of choice draws"
         per = int(np.prod(shape)) // self.m
-        u = np.concatenate([np.asarray(jax.random.uniform(k, (per,))) for k in self._next_node_keys()])
+        jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+        u = np.concatenate([np.asarray(jax.random.uniform(k, (per,), jdt)) for k in self._next_node_keys()])
         self.draws += 1
+        if dtype == torch.bfloat16:
+            return torch.from_numpy(u.view(np.int16).reshape(shape)).view(torch.bfloat16).to(device)
         return torch.from_numpy(u.reshape(shape)).to(device)
 
     def choice(self, n, k, device):

@@ -67,8 +67,11 @@ def test_torus_and_factory_equal_reference(m):
 
 
 def test_erdos_renyi_waits_and_unknown_names_raise():
-    with pytest.raises(ValueError, match="erdos_renyi"):
-        ptopo.make_topology("er", 6)
+    """'er' no longer waits: it draws the reference's graph (more cases in
+    tests/test_torch_net.py); unknown names still raise."""
+    got, want = ptopo.make_topology("er", 6), jtopo.make_topology("er", 6)
+    assert got.name == want.name and got.neighbors == want.neighbors
+    np.testing.assert_array_equal(got.W, want.W)
     with pytest.raises(ValueError, match="unknown topology"):
         ptopo.make_topology("hypercube", 6)
 

@@ -356,6 +356,68 @@ def test_quantize_blocks_are_cut_per_node():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=float(np.abs(x).max()) * 2.0**-21)
 
 
+def _bf16_inputs(nb, block, seed):
+    """The f32 inputs rounded to bf16, as jnp and torch tensors of the same
+    bits; the samples come from ``jax.random.uniform`` in bf16."""
+    x, _ = _quant_inputs(nb, block, seed)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    ju = jax.random.uniform(jax.random.PRNGKey(seed), (nb, block), jnp.bfloat16)
+    as_torch = lambda a: torch.from_numpy(np.asarray(a).view(np.int16).copy()).view(torch.bfloat16)  # noqa: E731
+    return jx, ju, as_torch(jx), as_torch(ju)
+
+
+@pytest.mark.parametrize("nb", [1, 5, 16])
+@pytest.mark.parametrize("block", [128, 1024])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_bf16_plain_matches_jnp_oracle_bit_for_bit(nb, block, bits):
+    """bf16 in, bf16 values and (nb, 1) bf16 scales out, equal bit for bit to
+    the reference's op-by-op (un-jitted) jnp oracle; NaN and all-zero rows
+    too."""
+    jx, ju, x, u = _bf16_inputs(nb, block, seed=nb * 31 + block + bits)
+    if nb > 1:
+        jx = jx.at[0, 17].set(jnp.nan).at[1].set(0.0)
+        x[0, 17], x[1] = float("nan"), 0.0
+    out, scales = quantize_kernel(x, u, bits)  # CPU: plain
+    assert out.dtype == scales.dtype == torch.bfloat16 and scales.shape == (nb, 1)
+    jout, jscales = j_quantize_ref(jx, ju, bits)
+    _assert_same(_np(out), np.asarray(jout))
+    _assert_same(_np(scales), np.asarray(jscales))
+
+
+@pytest.mark.parametrize("block", [128, 1024])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_bf16_plain_matches_pallas_within_a_bf16_ulp(block, bits):
+    """XLA on the CPU may keep f32 between the fused ops of the interpret-mode
+    kernel (excess precision), so its bf16 values may differ from the op-by-op
+    chain; the bound is one bf16 ulp of the row's scale (scale * 2^-7), with
+    equal scales."""
+    jx, ju, x, u = _bf16_inputs(16, block, seed=block + bits + 1)
+    out, scales = quantize_kernel(x, u, bits)
+    pout, pscales = quantize_pallas(jx, ju, bits=bits, block=block, interpret=True)
+    np.testing.assert_array_equal(_bits(_np(scales)), _bits(np.asarray(pscales)))
+    diff = np.abs(_np(out).astype(np.float32) - np.asarray(pout).astype(np.float32))
+    assert (diff <= np.asarray(pscales).astype(np.float32) * 2.0**-7).all()
+
+
+def test_kernel_quant_on_a_bf16_leaf_matches_the_reference():
+    """KernelQuant on a (2, 300) bf16 leaf (bits 4, block 128) draws its
+    samples in bf16, as the reference does, and returns a bf16 result equal
+    to the reference's on the replayed draws (within one bf16 ulp of each
+    block's scale: the reference runs the Pallas kernel)."""
+    rng = np.random.default_rng(5)
+    jx = jnp.asarray(rng.normal(size=(2, 300)).astype(np.float32)).astype(jnp.bfloat16)
+    x = torch.from_numpy(np.asarray(jx).view(np.int16).copy()).view(torch.bfloat16)
+    key = jax.random.PRNGKey(11)
+    want = np.asarray(j_compress_stacked(JKernelQuant(bits=4, block=128), key, jx))
+    got = KernelQuant(bits=4, block=128).compress_nodes(x, JaxReplay(message_leaf_keys(key, 1), 2))
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 300) and want.dtype == jnp.bfloat16
+    diff = np.abs(_np(got).astype(np.float32) - want.astype(np.float32))
+    assert (diff <= float(np.abs(np.asarray(jx).astype(np.float32)).max()) * 2.0**-7).all()
+    # a torch.Generator draws bf16 samples in [0, 1) too
+    out = KernelQuant(bits=4, block=128).compress_nodes(x, torch.Generator().manual_seed(0))
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+
+
 def test_quantize_wrapper_rejects_bad_inputs():
     x = torch.zeros((2, 128))
     with pytest.raises(ValueError):
