@@ -34,8 +34,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the closed form;
 7. the fabric path: run(fabric=WAN with lognormal stragglers,
    schedule=link dropout, obs=a JSONL sink) at the same width with
-   kernel_topk, T = 3: launch counts, every round's wire bytes against the
-   closed form, the JSONL's round and node records and oracle calls, and
+   kernel_topk, T = 3: launch counts, each node's message bytes against a
+   count of its nonzeros, every round's wire bytes against the closed form, the JSONL's round and node records and oracle calls, and
    the host seconds of the codec measurement and of the fabric simulation;
 8. small input: C2DFB with kernel_topk and with kernel_quant on a small
    task through the kernels and through the plain versions on the host,
@@ -353,8 +353,8 @@ def phase_kernels(dev) -> dict:
         plain_ms=topk["f32"]["plain_ms"], bound_ms=topk["f32"]["bound_ms"],
         bound_by="bytes", copy_ms=topk["f32"]["copy_ms"], library_ms=topk["f32"]["library_ms"],
         library="exact top-k: torch.topk + scatter (not bisection)",
-        bf16={kk: topk["bf16"][kk] for kk in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "copy_ms",
-                                              "library_ms")},
+        bf16=dict(name="block_topk_bf16", route="cuda", source="src/repro_torch/kernels/csrc/topk_compress.cu",
+                  replaces="src/repro/kernels/topk_compress.py:53", bound_by="bytes", **topk["bf16"]),
         leaf=dict(shape=[m, p * c], ms=leaf_t["ms"], call_ms=leaf_t["call_ms"]),
     )
 
@@ -500,7 +500,7 @@ def kernel_quantize(dev, x, gen) -> dict:
     nbytes = 3 * xb.numel() * 2 + rows * 2  # read x and u, write out and the (rows,) scales
     res["bf16"] = dict(
         name="quantize_bf16", route="cuda", source=res["source"], replaces=res["replaces"],
-        shape=[rows, block], bits=bits_main, launches=0,  # the main path quantizes f32 leaves
+        shape=[rows, block], bits=bits_main,  # launches: the kernel_quant main path's count, set in main()
         max_abs_err=float((got.float() - want.float()).abs().max()),
         ms=kt["ms"], call_ms=kt["call_ms"], timer=kt["timer"],
         plain_ms=timed(lambda: quantize_ref(xb, ub, bits_main), iters=5)["ms"],
@@ -527,7 +527,7 @@ def build_task(dev):
 def phase_main_path(dev, bundle, cfg_kw: dict, kernel: str, generator=None):
     """T rounds of `run` with ``cfg_kw``; ``kernel`` (a launch counter) must
     count exactly 4*K*T launches.  Returns the final state, config, topology
-    and that count."""
+    and every launch counter of the run."""
     from repro_torch.core.c2dfb import C2DFBConfig, run
     from repro_torch.core.topology import ring
     from repro_torch.kernels import _build
@@ -558,7 +558,7 @@ def phase_main_path(dev, bundle, cfg_kw: dict, kernel: str, generator=None):
     got = tuple(int(b) for b in mets["measured_bytes"])
     check(got == want, f"measured_bytes {got}, want {want}")
     profile_round(bundle.problem, topo, cfg, state, generator, tag)
-    return state, cfg, topo, counts[kernel]
+    return state, cfg, topo, counts
 
 
 def profile_round(problem, topo, cfg, state, generator, tag) -> None:
@@ -735,10 +735,12 @@ DROPOUT = dict(p_drop=0.2, seed=0)
 
 def phase_fabric(dev, bundle) -> dict:
     """run(fabric=, schedule=, obs=) at TASK's width with kernel_topk, T
-    rounds: block top-k launches 4*K a round, 4*K more in obs's one cost
-    round and 4 for the phases (each of the four messages compressed once
+    rounds: block top-k launches 4*K a round (obs counts FLOPs on round 0
+    itself) and 4 for the phases (each of the four messages compressed once
     on the final state), pack 4*m times for the phases (each node's
-    messages encoded once); every round's wire bytes equal the closed form; the JSONL holds
+    messages encoded once); each node's message bytes equal the sparse
+    format's size of its nonzeros, counted apart from the codec; every
+    round's wire bytes equal the closed form; the JSONL holds
     T round and T*m node records with the fleet's oracle calls.  Then the
     codec measurement and the fabric simulation are timed on the host,
     each alone (the simulation again on a trace-less fabric, which must
@@ -746,9 +748,11 @@ def phase_fabric(dev, bundle) -> dict:
     import tempfile
 
     from repro_torch.core.c2dfb import C2DFBConfig, round_phases, run
+    from repro_torch.core.inner_loop import inner_transmit
     from repro_torch.core.topology import ring
     from repro_torch.kernels import _build
     from repro_torch.net import LinkDropoutSchedule, NetTrace, edge_list, make_fabric
+    from repro_torch.net.wire import SparseCodec
     from repro_torch.obs import JsonlSink, Obs, read_jsonl
 
     m, p, c, K = TASK["m"], TASK["p"], TASK["c"], CFG["K"]
@@ -772,9 +776,9 @@ def phase_fabric(dev, bundle) -> dict:
     spans = {r["label"]: r["wall_seconds"] for r in records if r["kind"] == "timing"}
     print(f"[fabric] run(fabric=wan lognormal, schedule=dropout 0.2, obs=jsonl) {T} rounds in {wall!r} s "
           f"(spans {spans}), launches {counts}, peak device memory {torch.cuda.max_memory_allocated()} bytes")
-    want_topk = 4 * K * T + 4 * K + 4  # the rounds, obs's cost round, the phases' four messages
+    want_topk = 4 * K * T + 4  # the rounds, the phases' four messages
     check(counts["block_topk"] == want_topk,
-          f"block_topk launched {counts['block_topk']} times, want {4 * K * T} (rounds) + {4 * K} (cost round) "
+          f"block_topk launched {counts['block_topk']} times, want {4 * K * T} (rounds) "
           f"+ 4 (one compression a message measured for the phases)")
     check(counts["pack_sparse_blocks"] == 4 * m, f"pack launched {counts['pack_sparse_blocks']} times, want {4 * m}")
     for k in ("sim_seconds", "wire_bytes"):
@@ -790,6 +794,17 @@ def phase_fabric(dev, bundle) -> dict:
     for ph in (phases[2], phases[3], phases[2 + 2 * K], phases[3 + 2 * K]):  # y d, y s, z d, z s
         for i, nbytes in {i: b for (i, _), b in ph.items()}.items():
             per_node[i] += nbytes
+    # apart from the codec: a sparse payload is its header and a (u32 index,
+    # f32 value) record per nonzero of the message
+    header = len(SparseCodec().encode(torch.zeros(1)))
+    counted = [0] * m
+    for inner_state in (state.inner_y, state.inner_z):
+        for a, b in ((inner_state.d, inner_state.d_hat), (inner_state.s, inner_state.s_hat)):
+            q = inner_transmit(cfg.make_compressor(), None, a, b)
+            for i, nnz in enumerate(torch.count_nonzero(q.reshape(m, -1), dim=1).tolist()):
+                counted[i] += header + 8 * nnz
+    print(f"[fabric] each node's four messages: {per_node} bytes by the codec, {counted} counted apart")
+    check(per_node == counted, "the codec's message bytes differ from the count of the messages' nonzeros")
     dense = p * 4  # 406,524 B: one node's x (or s_x) in f32
     sim = make_fabric(topo, **FABRIC)
     sim_s = 0.0
@@ -973,9 +988,14 @@ def main() -> int:
         entry["spill_bytes"] = st + ld
     # 4. main paths: kernel_topk, then kernel_quant on the same task
     bundle = build_task(dev)
-    state, cfg, topo, kernels["block_topk"]["launches"] = phase_main_path(dev, bundle, CFG, "block_topk")
+    # (the main paths run f32 leaves: the bf16 instances' counts are read all the same)
+    state, cfg, topo, counts = phase_main_path(dev, bundle, CFG, "block_topk")
+    kernels["block_topk"]["launches"] = counts["block_topk"]
+    kernels["block_topk"]["bf16"]["launches"] = counts["block_topk_bf16"]
     gen = torch.Generator(device=dev).manual_seed(0)
-    qstate, qcfg, _, kernels["quantize"]["launches"] = phase_main_path(dev, bundle, CFG_QUANT, "quantize", gen)
+    qstate, qcfg, _, counts = phase_main_path(dev, bundle, CFG_QUANT, "quantize", gen)
+    kernels["quantize"]["launches"] = counts["quantize"]
+    kernels["quantize"]["bf16"]["launches"] = counts["quantize_bf16"]
     # 5. wire bytes through pack / unpack, and through the quant codec
     pack_launches, unpack_launches = phase_wire(state, cfg, topo)
     kernels["pack_sparse_blocks"]["launches"] = pack_launches

@@ -320,12 +320,13 @@ def run(
     numpy arrays of shape (T,).
 
     ``obs`` (a `repro_torch.obs.Obs`, or any object with ``emit(record)``)
-    streams the reference's records: a ``cost_analysis`` span (one round's
-    FLOPs, counted on a throwaway random source, so the run's draws and
-    trajectory are those of a run without ``obs``), a ``scan`` span around
-    the rounds, heartbeats every ``heartbeat_every`` rounds, then one
-    ``round`` record a round (fleet oracle calls; FLOPs; peak device memory
-    on round 0) and m ``node`` records a round.
+    streams the reference's records: a ``scan`` span around the rounds and,
+    inside it, a ``cost_analysis`` span around round 0, which runs under
+    ``FlopCounterMode`` to count one round's FLOPs (the counter only
+    observes, so the trajectory is that of a run without ``obs``);
+    heartbeats every ``heartbeat_every`` rounds; then one ``round`` record
+    a round (fleet oracle calls; FLOPs; peak device memory after round 0)
+    and m ``node`` records a round.
 
     ``async_mode``, ``mixing_damping`` and ``transport`` are the
     reference's asynchronous engine and transports, not ported yet: passing
@@ -358,27 +359,19 @@ def run(
         Ws = _mixing_matrix(topo, x0).expand(T, topo.m, topo.m)
 
     cost = mem0 = fleet_oracles = None
-    if obs is not None:
-        # one round body's FLOPs (memoized), on a throwaway random source;
-        # the round builds new tensors, so the state is left as it was
-        with obs.span("cost_analysis", engine="sync"):
-            calls = dict(problem.oracle_calls)
-            cost = round_cost(
-                ("c2dfb/sync", id(problem), id(topo), cfg),
-                lambda st, gen, W0: c2dfb_round(st, gen, problem, topo, cfg, W=W0),
-                state, torch.Generator(device=device).manual_seed(0), Ws[0],
-                expected_oracles=c2dfb_oracle_calls(cfg),
-                label="c2dfb/sync",
-            )
-            problem.oracle_calls.clear()
-            problem.oracle_calls.update(calls)
-        fleet_oracles = {k: v * topo.m for k, v in c2dfb_oracle_calls(cfg).items()}
-        mem0 = memory_peak_bytes(device)
-
     rounds = []
     with obs.span("scan", engine="sync") if obs is not None else contextlib.nullcontext():
         for t in range(T):
-            state, metrics = c2dfb_round(state, generator, problem, topo, cfg, W=Ws[t])
+            if obs is not None and t == 0:
+                with obs.span("cost_analysis", engine="sync"):
+                    (state, metrics), cost = round_cost(
+                        c2dfb_round, state, generator, problem, topo, cfg, Ws[0],
+                        expected_oracles=c2dfb_oracle_calls(cfg), label="c2dfb/sync",
+                    )
+                fleet_oracles = {k: v * topo.m for k, v in c2dfb_oracle_calls(cfg).items()}
+                mem0 = memory_peak_bytes(device)
+            else:
+                state, metrics = c2dfb_round(state, generator, problem, topo, cfg, W=Ws[t])
             scan_heartbeat(obs, "sync", t, metrics)
             rounds.append(metrics)
         if obs is not None and device.type == "cuda":

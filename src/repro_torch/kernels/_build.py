@@ -16,8 +16,10 @@ in parallel, one nvcc process each.
 ``BUILD_LOGS`` holds nvcc's output of each source (its -Xptxas -v lines
 name every kernel's registers and spills), kept beside the library so a
 later process that loads it finds the log too.  ``LAUNCHES`` holds one
-plain integer per kernel wrapper; a wrapper adds one where it launches its
-kernel and nowhere else.
+plain integer per kernel wrapper and dtype (``block_topk`` and ``quantize``
+count their f32 launches, ``block_topk_bf16`` and ``quantize_bf16`` their
+bf16 ones); a wrapper adds one where it launches its kernel and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -60,7 +62,10 @@ SIGNATURES = {
     },
 }
 
-LAUNCHES = {"block_topk": 0, "pack_sparse_blocks": 0, "unpack_sparse_blocks": 0, "quantize": 0}
+LAUNCHES = {
+    "block_topk": 0, "block_topk_bf16": 0, "pack_sparse_blocks": 0, "unpack_sparse_blocks": 0,
+    "quantize": 0, "quantize_bf16": 0,
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}

@@ -18,6 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import quantize_ref
 
 _ENTRY = {torch.float32: "quantize_f32", torch.bfloat16: "quantize_bf16"}
+_COUNTER = {torch.float32: "quantize", torch.bfloat16: "quantize_bf16"}
 
 
 def quantize_kernel(
@@ -59,5 +60,5 @@ def quantize_kernel(
     stream = _build.stream_for(x2d)
     rc = fn(x2d.data_ptr(), u2d.data_ptr(), out.data_ptr(), scales.data_ptr(), nb, block, int(bits), stream)
     _build.check(rc, "quantize")
-    _build.LAUNCHES["quantize"] += 1
+    _build.LAUNCHES[_COUNTER[x2d.dtype]] += 1
     return out, scales

@@ -19,6 +19,7 @@ from repro_torch.kernels.ref import block_topk_ref
 MAX_BLOCK = 4096  # above 1,024: one CTA of block / 4 threads a row, at most 1,024
 _ENTRY = {torch.float32: "block_topk_f32", torch.bfloat16: "block_topk_bf16"}
 _LEAF_ENTRY = {torch.float32: "block_topk_leaf_f32", torch.bfloat16: "block_topk_leaf_bf16"}
+_COUNTER = {torch.float32: "block_topk", torch.bfloat16: "block_topk_bf16"}
 
 
 def _check_launch(x: torch.Tensor, block: int, k: int) -> None:
@@ -36,7 +37,7 @@ def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, nb: int, block: int,
     fn = getattr(_build.library("topk_compress"), entry)
     rc = fn(x.data_ptr(), out.data_ptr(), nb, block, *d, int(k), _build.stream_for(x))
     _build.check(rc, "block_topk")
-    _build.LAUNCHES["block_topk"] += 1
+    _build.LAUNCHES[_COUNTER[x.dtype]] += 1
 
 
 def block_topk_kernel(x2d: torch.Tensor, k: int) -> torch.Tensor:

@@ -14,9 +14,9 @@ Three layers, as in the reference:
    `check_structure` pins the two views to each other: a kind the formula
    says is zero must have zero counted calls, a nonzero kind at least one.
 
-2. **FLOPs of one round.**  `round_cost` runs one round body once per
-   cache key under ``torch.utils.flop_counter.FlopCounterMode`` and counts
-   its FLOPs (matrix products, as PyTorch's counter sees them).  These
+2. **FLOPs of one round.**  `round_cost` runs a run's round 0 under
+   ``torch.utils.flop_counter.FlopCounterMode`` and counts its FLOPs
+   (matrix products, as PyTorch's counter sees them).  These
    FLOPs are NOT XLA's (the reference walks the compiled HLO), and are
    never compared with them.  ``hbm_bytes``, ``collective_bytes`` and
    ``compile_seconds`` have no counterpart here and stay None.
@@ -149,7 +149,7 @@ def check_structure(label: str, expected: dict[str, int], sites: dict[str, int])
 
 
 # ---------------------------------------------------------------------------
-# one round body's FLOPs (memoized)
+# one round body's FLOPs
 # ---------------------------------------------------------------------------
 
 
@@ -165,45 +165,34 @@ class RoundCost:
     compile_seconds: float | None = None
 
 
-#: round-body cost memo, keyed like the reference's (``id(problem)`` /
-#: ``id(topo)`` + config)
-_COST_CACHE: dict = {}
-
-
 def reset_cost_cache() -> None:
-    _COST_CACHE.clear()
+    """The reference's memo reset.  The port keeps no memo (every run
+    counts its own first round, see `round_cost`), so there is nothing to
+    reset."""
 
 
 def round_cost(
-    key: tuple,
     fn,
     *args,
     expected_oracles: dict[str, int] | None = None,
     label: str = "round",
-) -> RoundCost:
-    """Run ``fn(*args)`` once under ``FlopCounterMode``, check the oracle
-    calls it made against ``expected_oracles`` (`check_structure`), and
-    memoize the `RoundCost` under ``key``.  The module-wide oracle counters
-    are restored afterwards: the cost round is bookkeeping, not part of the
-    run.  A memo hit runs nothing."""
-    cached = _COST_CACHE.get(key)
-    if cached is not None:
-        return cached
+):
+    """Run ``fn(*args)`` once under ``FlopCounterMode`` and return its
+    result with the `RoundCost` of that call, after checking the oracle
+    calls it made against ``expected_oracles`` (`check_structure`).
+
+    The reference lowers a round without running it; the port counts a
+    round it runs anyway (a run's round 0).  The counter only observes the
+    operators, so the round computes what it computes without it, and its
+    oracle calls count as the run's own."""
     from torch.utils.flop_counter import FlopCounterMode
 
     before = oracle_trace_counts()
-    try:
-        with FlopCounterMode(display=False) as counter:
-            fn(*args)
-        sites = oracle_site_delta(before)
-    finally:
-        _ORACLE_SITES.clear()
-        _ORACLE_SITES.update(before)
+    with FlopCounterMode(display=False) as counter:
+        out = fn(*args)
     if expected_oracles is not None:
-        check_structure(label, expected_oracles, sites)
-    cost = RoundCost(flops=float(counter.get_total_flops()))
-    _COST_CACHE[key] = cost
-    return cost
+        check_structure(label, expected_oracles, oracle_site_delta(before))
+    return out, RoundCost(flops=float(counter.get_total_flops()))
 
 
 def memory_peak_bytes(device=None) -> int | None:

@@ -40,7 +40,6 @@ from repro_torch.data import bilevel_tasks as ptasks
 from repro_torch.net import dynamic as pdyn
 from repro_torch.net import fabric as pfab
 from repro_torch.net import trace as ptrace
-from repro_torch.obs import compute as pcompute
 from repro_torch.obs import report as preport
 from repro_torch.obs import watch as pwatch
 
@@ -192,22 +191,26 @@ def test_structure_check_and_counters():
 
 
 def test_round_cost_counts_flops_once_and_restores_counters():
-    pobs.reset_cost_cache()
+    """round_cost runs its body once and returns the body's result with its
+    FLOPs.  The body is a round the run keeps (round 0), so its oracle calls
+    stay counted: nothing is rolled back."""
     a, b = torch.ones(4, 8), torch.ones(8, 3)
     before = pobs.oracle_trace_counts()
+    calls = []
 
     def body(x, y):
+        calls.append(1)
         pobs.record_oracle("ul_grad")
         return x @ y
 
-    cost = pobs.round_cost(("t", 1), body, a, b, expected_oracles={"ul_grad": 1}, label="t")
+    out, cost = pobs.round_cost(body, a, b, expected_oracles={"ul_grad": 1}, label="t")
+    assert len(calls) == 1 and torch.equal(out, a @ b)
     assert cost.flops == 2 * 4 * 8 * 3
     assert cost.hbm_bytes is None and cost.compile_seconds is None
-    assert pobs.oracle_trace_counts() == before  # bookkeeping, not part of a run
-    assert pobs.round_cost(("t", 1), lambda: 1 / 0) is cost  # memo hit: runs nothing
+    assert pobs.oracle_trace_counts()["ul_grad"] == before.get("ul_grad", 0) + 1
     with pytest.raises(ValueError, match="structurally"):
-        pobs.round_cost(("t", 2), body, a, b, expected_oracles={"hvp": 1}, label="t")
-    pobs.reset_cost_cache()
+        pobs.round_cost(body, a, b, expected_oracles={"hvp": 1}, label="t")
+    pobs.reset_cost_cache()  # the reference's name; the port keeps no memo
 
 
 def test_obs_handle():
@@ -309,8 +312,9 @@ def test_record_stream_has_the_reference_shape(obs_runs):
 
 
 def test_run_with_obs_counts_the_oracles_of_its_rounds_only(obs_runs):
-    """The cost round runs outside the run's count: the problem's counter
-    holds init_state's calls (2 ll_grad, 3 ul_grad) and T rounds'."""
+    """FLOPs are counted on the run's own round 0, with no extra round: the
+    problem's counter holds init_state's calls (2 ll_grad, 3 ul_grad) and T
+    rounds'."""
     per = pobs.c2dfb_oracle_calls(obs_runs["cfg"])
     assert obs_runs["calls"] == {"ul_grad": 3 + per["ul_grad"] * T, "ll_grad": 2 + per["ll_grad"] * T}
 
@@ -322,7 +326,6 @@ def test_run_with_obs_is_bit_for_bit_the_run_without(bundles, compressor, tmp_pa
     cfg = P.C2DFBConfig(K=K, compressor=compressor, comp_ratio=0.2, comp_bits=4, comp_block=128)
     out = []
     for obs in (None, pobs.Obs(sink=pobs.JsonlSink(str(tmp_path / "run.jsonl")), heartbeat_every=1)):
-        pcompute.reset_cost_cache()
         pb.problem.oracle_calls.clear()
         state, mets = P.run(pb.problem, pt, cfg, pb.x0, pb.y0, T=T, device="cpu",
                             generator=torch.Generator().manual_seed(3), obs=obs)
