@@ -11,9 +11,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    every kernel's registers and spills are printed, and a spill fails;
 3. kernels on edge rows (NaN, +-inf, zeros, ties, -0.0, subnormals) at
    blocks 128 to 4,096 and at the main path's shapes, each against its plain
-   version on the card (bit-exact; the quantizer in f32 and bf16), timed
-   (device time by torch.profiler, call time by CUDA events) beside its
-   memory bound, a copy_ of the same bytes and, where one exists, a PyTorch
+   version on the card (bit-exact; block top-k and the quantizer in f32 and
+   bf16, on tiles and on node-stacked leaves read in place), timed (device
+   time by torch.profiler, call time by CUDA events) beside its memory
+   bound, a copy_ of the same bytes and, where one exists, a PyTorch
    library call computing the same function;
 4. main paths: synchronous C2DFB on the 20 Newsgroups-width coefficient-
    tuning task (p = 101,631, c = 20, m = 10 nodes on a ring, label skew 0.8,
@@ -21,8 +22,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    kernel_topk (block top-k must launch exactly 4*K*T times and the rounds
    must meter TOPK_ROUND_BYTES) and once with kernel_quant on a
    torch.Generator (the quantizer must launch 4*K*T times and every round
-   must meter 417,834,480 bytes); after each, one more
-   round is timed and profiled (device busy share, device time by kernel);
+   must meter 417,834,480 bytes); after each, one more round is timed and
+   profiled (device busy share, device time by kernel; the compressor's
+   kernel runs 4*K times and no leaf is padded); then KernelQuant and
+   KernelBlockTopK on a bf16 leaf of the same width, one bf16 launch each,
+   bit for bit against their plain versions;
 5. wire bytes: round_wire_bytes_measured on each final state.  kernel_topk:
    the pack kernel launches 4*m times, every block-sparse payload equals the
    sparse codec's byte string and the unpack kernel decodes every pack
@@ -35,13 +39,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 7. the fabric path: run(fabric=WAN with lognormal stragglers,
    schedule=link dropout, obs=a JSONL sink) at the same width with
    kernel_topk, T = 3: launch counts, each node's message bytes against a
-   count of its nonzeros, every round's wire bytes against the closed form, the JSONL's round and node records and oracle calls, and
-   the host seconds of the codec measurement and of the fabric simulation;
+   count of its nonzeros, every round's wire bytes against the closed form,
+   the JSONL's round and node records (oracle calls, compute_flops,
+   hbm_bytes), and the host seconds of the codec measurement and of the
+   fabric simulation;
 8. small input: C2DFB with kernel_topk and with kernel_quant on a small
    task through the kernels and through the plain versions on the host,
    which must agree (the quantizer runs share their samples); and a run on
-   an Erdos-Renyi graph with a dropout schedule and a fabric, whose
-   simulated seconds and wire bytes must be equal on the card and the host.
+   an Erdos-Renyi graph with a dropout schedule, a fabric and obs, whose
+   simulated seconds, wire bytes, compute_flops and hbm_bytes must be equal
+   on the card and the host.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -114,7 +121,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def device_window(fn, iters: int):
     """Run ``fn`` ``iters`` times under torch.profiler; returns the device
-    activity it saw (kernels, memsets, copies) and the host wall seconds."""
+    activity it saw (kernels, memsets, copies), the host wall seconds and
+    the host operators' names with their counts."""
+    import collections
+
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -125,7 +135,8 @@ def device_window(fn, iters: int):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return events, wall
+    ops = collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CPU)
+    return events, wall, ops
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3):
@@ -134,7 +145,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3):
     none."""
     for _ in range(warmup):
         fn()
-    events, _ = device_window(fn, iters)
+    events, _, _ = device_window(fn, iters)
     us = sum(e.time_range.elapsed_us() for e in events)
     print(f"[timer] {len(events)} device activities over {iters} calls: "
           f"{sorted({e.name[:40] for e in events})[:4]}")
@@ -267,10 +278,10 @@ MAIN_INSTANCES = {
     "block_topk": "warp_topk_kernel<float, 32, 32>",
     "pack_sparse_blocks": "pack_kernel",
     "unpack_sparse_blocks": "unpack_kernel",
-    "quantize": "quantize_kernel<float>",
+    "quantize": "warp_quant_kernel<float, 32, 32>",
 }
-# the instance of the bf16 quantizer (phase 3; the main path is f32)
-QUANT_BF16_INSTANCE = "quantize_kernel<__nv_bfloat16>"
+# the instance of the bf16 quantizer (phase 3 and the bf16 phase; the main path is f32)
+QUANT_BF16_INSTANCE = "warp_quant_kernel<__nv_bfloat16, 32, 16>"
 
 
 def ptxas_report(logs: dict) -> dict:
@@ -409,20 +420,40 @@ def phase_kernels(dev) -> dict:
     return res
 
 
+def quant_leaf_want(leaf: torch.Tensor, u: torch.Tensor, bits_: int, block: int) -> torch.Tensor:
+    """The plain version of quantize_leaf: quantize_ref on the leaf's
+    zero-padded tiles, cut back to (m, d)."""
+    from repro_torch.kernels.ref import quantize_ref
+
+    m, d = leaf.shape
+    nb = -(-d // block)
+    tiles = torch.nn.functional.pad(leaf, (0, nb * block - d)).reshape(m * nb, block)
+    return quantize_ref(tiles, u, bits_)[0].reshape(m, -1)[:, :d]
+
+
 def quant_edges(dev, gen) -> int:
     """B4 f32 and bf16 on the edge rows (NaN, +-inf, zeros, ties, -0.0,
     subnormals) at every EDGE_BLOCKS block and bits 2, 4 and 8, bit for bit
-    against quantize_ref (values and scales, NaN positions equal).  Returns
-    the number of cases checked."""
-    from repro_torch.kernels.quantize import quantize_kernel
+    against quantize_ref (values and scales, NaN positions equal): on tiles,
+    and on leaves of 3 nodes holding the edge rows whose d is no multiple of
+    block (d % 4 == 0 read in place, d % 4 == 2 through padded tiles).
+    Returns the number of cases checked."""
+    from repro_torch.kernels.quantize import quantize_kernel, quantize_leaf
     from repro_torch.kernels.ref import quantize_ref
 
     cases = 0
     for block in EDGE_BLOCKS:
         x = edge_rows(block, gen, dev)
+        flat = torch.cat([x.reshape(-1)] * 2)
+        leaves = []
+        for d in (2 * block + 100, 2 * block + 102):
+            leaf = flat[: 3 * d].reshape(3, d).clone()
+            leaf[2, 2 * block:] = 0.0
+            leaves.append(leaf)
         for dt in (torch.float32, torch.bfloat16):
             xin = x.to(dt)
             u = torch.rand(x.shape, generator=gen, device=dev, dtype=dt)
+            ul = torch.rand((9, block), generator=gen, device=dev, dtype=dt)
             for b in (2, 4, 8):
                 got, scales = quantize_kernel(xin, u, b)
                 want, wscales = quantize_ref(xin, u, b)
@@ -431,21 +462,30 @@ def quant_edges(dev, gen) -> int:
                 check(got.dtype == scales.dtype == dt, f"{what}: result dtype {got.dtype}, scales {scales.dtype}")
                 check(same(got, want), f"{what} differs from its plain version on the edge rows")
                 check(same(scales, wscales), f"{what}: scales differ from the plain version's")
+                for leaf in leaves:
+                    leaf = leaf.to(dt)
+                    got = quantize_leaf(leaf, ul, b, block)
+                    torch.cuda.synchronize()
+                    check(same(got, quant_leaf_want(leaf, ul, b, block)),
+                          f"{what} leaf d {leaf.shape[1]} differs from its plain version")
                 cases += 1
-    print(f"[kernels] quantize edge rows: {cases} cases (f32 and bf16) at blocks {EDGE_BLOCKS}, "
+    print(f"[kernels] quantize edge rows: {cases} cases (f32 and bf16, tiles and leaves) at blocks {EDGE_BLOCKS}, "
           f"bit-exact against quantize_ref")
     return cases
 
 
 def kernel_quantize(dev, x, gen) -> dict:
     """B4 at the main path's launch shape (bits 4), bits 2 and 8 on a slice,
-    a NaN row and an all-zero row; each bit for bit against quantize_ref.
-    Then B4 bf16 at the same shape (samples drawn in bf16), bit for bit and
-    timed; and both on the edge rows."""
-    from repro_torch.kernels.quantize import quantize_kernel
+    a NaN row and an all-zero row, each bit for bit against quantize_ref;
+    then the main path's call, the (m, p * c) leaf read in place, bit for
+    bit against quantize_ref on its padded tiles.  Then the same in bf16
+    (samples drawn in bf16); both on the edge rows.  Timed: the leaf call
+    (the main path's, ``ms``) and the tile call (``tile_ms``)."""
+    from repro_torch.kernels.quantize import quantize_kernel, quantize_leaf
     from repro_torch.kernels.ref import quantize_ref
 
     rows, block = x.shape
+    m, d = TASK["m"], TASK["p"] * TASK["c"]
     bits_main = CFG_QUANT["comp_bits"]
     u = torch.rand(x.shape, generator=gen, device=dev)
     small = slice(0, 2048)
@@ -461,56 +501,101 @@ def kernel_quantize(dev, x, gen) -> dict:
         got, scales = quantize_kernel(xin, uin, b)
         want, wscales = quantize_ref(xin, uin, b)
         torch.cuda.synchronize()
-        nan = torch.isnan(want)
-        check(torch.equal(torch.isnan(got), nan), f"quantize {what}: NaN positions differ")
-        check(torch.equal(bits(got[~nan]), bits(want[~nan])), f"quantize {what} differs from its plain version")
-        check(torch.equal(bits(scales.nan_to_num()), bits(wscales.nan_to_num())), f"quantize {what}: scales differ")
+        check(same(got, want), f"quantize {what} differs from its plain version")
+        check(same(scales, wscales), f"quantize {what}: scales differ")
         print(f"[kernels] quantize {what}: bit-exact against quantize_ref")
-    got, _ = quantize_kernel(x, u, bits_main)
-    want, _ = quantize_ref(x, u, bits_main)
-    kt = timed(lambda: quantize_kernel(x, u, bits_main))
-    draw = timed(lambda: torch.rand(x.shape, generator=gen, device=dev))
-    res = dict(
-        name="quantize", route="cuda", ok=True,
-        source="src/repro_torch/kernels/csrc/quantize.cu",
-        replaces="src/repro/kernels/quantize.py:43",
-        shape=[rows, block], bits=bits_main,
-        max_abs_err=float((got - want).abs().max()),
-        ms=kt["ms"], call_ms=kt["call_ms"], timer=kt["timer"],
-        plain_ms=timed(lambda: quantize_ref(x, u, bits_main), iters=5)["ms"],
-        # read x and u, write out and the (rows,) scales
-        bound_ms=bound_ms(3 * x.numel() * 4 + rows * 4),
-        bound_by="bytes", copy_ms=copy_ms(3 * x.numel() * 4 + rows * 4), library_ms=None,
-        library="none: no single PyTorch call computes it",
-        # the U[0,1) draw the kernel is fed (torch.rand, outside the kernel)
-        rand_ms=draw["ms"], rand_call_ms=draw["call_ms"], rand_bound_ms=bound_ms(x.numel() * 4),
-    )
-    print(f"[kernels] quantize: {res}")
-
-    # bf16: x rounded to bf16, u drawn in bf16 (as KernelQuant draws for a bf16 leaf)
-    xb = x.to(torch.bfloat16)
-    ub = torch.rand(x.shape, generator=gen, device=dev, dtype=torch.bfloat16)
-    got, scales = quantize_kernel(xb, ub, bits_main)
-    want, wscales = quantize_ref(xb, ub, bits_main)
-    torch.cuda.synchronize()
-    check(got.dtype == scales.dtype == torch.bfloat16, "quantize bf16 returned another dtype")
-    check(torch.equal(bits(got), bits(want)), f"quantize bf16 ({rows}, {block}) differs from its plain version")
-    check(torch.equal(bits(scales), bits(wscales)), "quantize bf16 scales differ from the plain version's")
-    kt = timed(lambda: quantize_kernel(xb, ub, bits_main))
-    nbytes = 3 * xb.numel() * 2 + rows * 2  # read x and u, write out and the (rows,) scales
-    res["bf16"] = dict(
-        name="quantize_bf16", route="cuda", source=res["source"], replaces=res["replaces"],
-        shape=[rows, block], bits=bits_main,  # launches: the kernel_quant main path's count, set in main()
-        max_abs_err=float((got.float() - want.float()).abs().max()),
-        ms=kt["ms"], call_ms=kt["call_ms"], timer=kt["timer"],
-        plain_ms=timed(lambda: quantize_ref(xb, ub, bits_main), iters=5)["ms"],
-        bound_ms=bound_ms(nbytes), bound_by="bytes", copy_ms=copy_ms(nbytes), library_ms=None,
-        rand_ms=timed(lambda: torch.rand(x.shape, generator=gen, device=dev, dtype=torch.bfloat16))["ms"],
-        rand_bound_ms=bound_ms(x.numel() * 2),
-    )
-    print(f"[kernels] quantize bf16: {res['bf16']}")
+    res = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        xt = x.to(dt)
+        ut = u if dt == torch.float32 else torch.rand(x.shape, generator=gen, device=dev, dtype=dt)
+        leaf = xt.reshape(-1)[: m * d].reshape(m, d)
+        got, scales = quantize_kernel(xt, ut, bits_main)
+        want, wscales = quantize_ref(xt, ut, bits_main)
+        got_leaf = quantize_leaf(leaf, ut, bits_main, block)
+        want_leaf = quant_leaf_want(leaf, ut, bits_main, block)
+        torch.cuda.synchronize()
+        check(got.dtype == scales.dtype == got_leaf.dtype == dt, f"quantize {name} returned another dtype")
+        check(same(got, want) and same(scales, wscales), f"quantize {name} ({rows}, {block}) differs from its plain version")
+        check(same(got_leaf, want_leaf), f"quantize {name} leaf ({m}, {d}) in place differs from its plain version")
+        print(f"[kernels] quantize {name} ({rows}, {block}) and the ({m}, {d}) leaf in place: bit-exact")
+        size = xt.element_size()
+        kt = timed(lambda: quantize_leaf(leaf, ut, bits_main, block))
+        tt = timed(lambda: quantize_kernel(xt, ut, bits_main))
+        draw = timed(lambda: torch.rand(x.shape, generator=gen, device=dev, dtype=dt))
+        leaf_bytes = (2 * m * d + rows * block) * size  # read the leaf and u, write the leaf
+        tile_bytes = 3 * rows * block * size + rows * size  # read x and u, write out and the scales
+        res[name] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:43",
+            shape=[m, d], tile_shape=[rows, block], bits=bits_main,
+            max_abs_err=float((got_leaf.float() - want_leaf.float()).nan_to_num().abs().max()),
+            ms=kt["ms"], call_ms=kt["call_ms"], timer=kt["timer"],
+            plain_ms=timed(lambda: quant_leaf_want(leaf, ut, bits_main, block), iters=5)["ms"],
+            bound_ms=bound_ms(leaf_bytes), bound_by="bytes", copy_ms=copy_ms(leaf_bytes), library_ms=None,
+            library="none: no single PyTorch call computes it",
+            tile_ms=tt["ms"], tile_call_ms=tt["call_ms"], tile_bound_ms=bound_ms(tile_bytes),
+            # the U[0,1) draw the kernel is fed (torch.rand, outside the kernel)
+            rand_ms=draw["ms"], rand_call_ms=draw["call_ms"], rand_bound_ms=bound_ms(rows * block * size),
+        )
+        print(f"[kernels] quantize {name}: {res[name]}")
     quant_edges(dev, gen)
-    return res
+    return dict(name="quantize", ok=True, **res["f32"], bf16=dict(name="quantize_bf16", **res["bf16"]))
+
+
+class RecordedDraws:
+    """A random source on the card that keeps its last uniform draw, so a
+    check can feed the plain version the kernel's samples."""
+
+    def __init__(self, dev, seed: int):
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.last = None
+
+    def uniform(self, shape, device, dtype=torch.float32):
+        self.last = torch.rand(shape, generator=self.gen, device=device, dtype=dtype)
+        return self.last
+
+    def choice(self, n, k, device):
+        return torch.randperm(n, generator=self.gen, device=device)[:k]
+
+
+def phase_bf16_leaf(dev) -> dict:
+    """KernelQuant and KernelBlockTopK (the main paths' compressors) on a
+    node-stacked bf16 leaf of the main width, (m, p, c): one bf16 quantizer
+    and one bf16 top-k launch, each reading the leaf in place, each bit for
+    bit against its plain version on the padded tiles.  Returns the bf16
+    launch counts of the phase."""
+    from repro_torch.core.compression import KernelBlockTopK, KernelQuant
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import block_topk_ref
+
+    m, p, c = TASK["m"], TASK["p"], TASK["c"]
+    block, d = CFG_QUANT["comp_block"], p * c
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((m, p, c), generator=gen, device=dev).to(torch.bfloat16)
+    quant, topk = KernelQuant(bits=CFG_QUANT["comp_bits"], block=block), KernelBlockTopK(ratio=CFG["comp_ratio"], block=block)
+    draws = RecordedDraws(dev, 3)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    q = quant.compress_nodes(x, draws)
+    k = topk.compress_nodes(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    print(f"[bf16] KernelQuant and KernelBlockTopK on a bf16 ({m}, {p}, {c}) leaf in {wall!r} s, launches {counts}")
+    check(counts["quantize_bf16"] == 1 and counts["block_topk_bf16"] == 1, "the bf16 kernels did not launch once each")
+    check(counts["quantize"] == 0 and counts["block_topk"] == 0, "a bf16 leaf launched an f32 kernel")
+    check(q.dtype == k.dtype == torch.bfloat16 and q.shape == k.shape == x.shape, "bf16 compressors changed dtype or shape")
+    flat = x.reshape(m, d)
+    check(same(q.reshape(m, d), quant_leaf_want(flat, draws.last, quant.bits, block)),
+          "KernelQuant on the bf16 leaf differs from its plain version")
+    nb = -(-d // block)
+    tiles = torch.nn.functional.pad(flat, (0, nb * block - d)).reshape(m * nb, block)
+    kk = max(1, int(round(topk.ratio * block)))
+    check(same(k.reshape(m, d), block_topk_ref(tiles, kk).reshape(m, -1)[:, :d]),
+          "KernelBlockTopK on the bf16 leaf differs from its plain version")
+    print("[bf16] both bit-exact against their plain versions on the padded tiles")
+    return dict(quantize_bf16=counts["quantize_bf16"], block_topk_bf16=counts["block_topk_bf16"])
 
 
 def build_task(dev):
@@ -564,7 +649,8 @@ def phase_main_path(dev, bundle, cfg_kw: dict, kernel: str, generator=None):
 def profile_round(problem, topo, cfg, state, generator, tag) -> None:
     """One more round from the final state (outside the counted run): its
     host wall time, then a device profile of a second one — device busy
-    share and the device time by kernel name."""
+    share and the device time by kernel name.  The compressor's kernel runs
+    4*K times in it, on the leaves in place: no F.pad of a leaf."""
     from repro_torch.core.c2dfb import c2dfb_round
 
     tag = tag.replace("[main", "[round")
@@ -573,7 +659,7 @@ def profile_round(problem, topo, cfg, state, generator, tag) -> None:
     c2dfb_round(state, generator, problem, topo, cfg)
     torch.cuda.synchronize()
     print(f"{tag} steady-state round wall {time.perf_counter() - t0!r} s")
-    events, wall = device_window(lambda: c2dfb_round(state, generator, problem, topo, cfg), 1)
+    events, wall, ops = device_window(lambda: c2dfb_round(state, generator, problem, topo, cfg), 1)
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
     for a, b in spans:  # union of device intervals, in microseconds
@@ -586,10 +672,17 @@ def profile_round(problem, topo, cfg, state, generator, tag) -> None:
         acc[0] += e.time_range.elapsed_us()
         acc[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    kernel = "quant_kernel" if cfg.compressor == "kernel_quant" else "topk_kernel"
+    launches = sum(n for name, (_, n) in by_name.items() if kernel in name)
+    gemms = sum(n for name, (_, n) in by_name.items() if "gemm" in name and "32x32" in name)
     print(f"{tag} profiled round: wall {wall!r} s, device busy {busy / 1e6!r} s "
-          f"({busy / 1e6 / wall:.3f} of the wall), {len(events)} device activities")
+          f"({busy / 1e6 / wall:.3f} of the wall), {len(events)} device activities; {launches} {kernel} "
+          f"launches, {ops['aten::constant_pad_nd']} host pads, {ops['aten::bmm']} bmm ({gemms} long-K GEMM "
+          f"kernels), {ops['aten::mm']} mm")
     for name, (us, n) in top:
         print(f"{tag}   {us / 1e3:10.3f} ms  {n:5d}x  {name[:90]}")
+    check(launches == 4 * cfg.K, f"{tag} {kernel} ran {launches} times in a round, want {4 * cfg.K}")
+    check(ops["aten::constant_pad_nd"] == 0, f"{tag} a round padded {ops['aten::constant_pad_nd']} tensors")
 
 
 def phase_wire(state, cfg, topo):
@@ -830,11 +923,13 @@ def phase_fabric(dev, bundle) -> dict:
     nodes = [r for r in records if r["kind"] == "node"]
     print(f"[fabric] JSONL: {len(rounds)} round and {len(nodes)} node records, {len(records)} in all; "
           f"oracle calls a round {rounds[0]['oracle_calls']}; compute_flops {rounds[0]['compute_flops']!r} "
-          f"(FlopCounterMode); memory_peak_bytes {rounds[0]['memory_peak_bytes']}; merged trace {len(events)} events")
+          f"(FlopCounterMode), hbm_bytes {rounds[0]['hbm_bytes']!r} (matrix products' operands and outputs); "
+          f"memory_peak_bytes {rounds[0]['memory_peak_bytes']}; merged trace {len(events)} events")
     check(len(rounds) == T and len(nodes) == T * m, "wrong record counts")
     fleet = {"ul_grad": 3 * m, "ll_grad": 2 * (K + 1) * m, "hvp": 0, "jvp": 0}  # {30, 220, 0, 0} at TASK, CFG
     check(all(r["oracle_calls"] == fleet for r in rounds), f"oracle calls differ from the closed form {fleet}")
     check(all(r["compute_flops"] and r["compute_flops"] > 0 for r in rounds), "no FLOPs counted")
+    check(all(r["hbm_bytes"] and r["hbm_bytes"] > 0 for r in rounds), "no matrix-product bytes counted")
     check(isinstance(rounds[0]["memory_peak_bytes"], int) and rounds[0]["memory_peak_bytes"] > 0, "no peak memory")
     check([r["wire_bytes"] for r in rounds] == [int(b) for b in mets["wire_bytes"]], "records carry other bytes")
     check(set(spans) == {"cost_analysis", "scan"}, f"timing spans {sorted(spans)}")
@@ -927,30 +1022,37 @@ def phase_small_input(dev):
 
 def phase_small_fabric(dev):
     """A small run on the Erdős–Rényi graph (its 18 edges checked) with a
-    dropout schedule and a WAN fabric, on the card and on the host: the
-    states agree within TOL, sim_seconds and wire_bytes exactly."""
+    dropout schedule, a WAN fabric and obs, on the card and on the host: the
+    states agree within TOL; sim_seconds, wire_bytes and the round records'
+    compute_flops and hbm_bytes exactly."""
     from repro_torch.core.c2dfb import C2DFBConfig, run
     from repro_torch.core.topology import make_topology
     from repro_torch.core.types import tree_leaves
     from repro_torch.data.bilevel_tasks import coefficient_tuning_task
     from repro_torch.net import LinkDropoutSchedule, make_fabric
     from repro_torch.net.dynamic import base_edges
+    from repro_torch.obs import MemorySink, Obs
 
     topo = make_topology("er", 10, p=0.4, seed=0)
     check(base_edges(topo) == ER_EDGES, f"er(10, 0.4, seed 0) drew {base_edges(topo)}")
     cfg = C2DFBConfig(K=3, compressor="kernel_topk", comp_ratio=0.2, comp_block=128)
-    out = {}
+    out, costs = {}, {}
     for d in ("cpu", dev):
         b = coefficient_tuning_task(m=10, n=400, p=64, c=4, seed=0, device=d)
-        out[d] = run(b.problem, topo, cfg, b.x0, b.y0, T=3, device=d,
+        sink = MemorySink()
+        out[d] = run(b.problem, topo, cfg, b.x0, b.y0, T=3, device=d, obs=Obs(sink=sink),
                      schedule=LinkDropoutSchedule(topo, **DROPOUT), fabric=make_fabric(topo, **FABRIC))
+        costs[d] = [(r["compute_flops"], r["hbm_bytes"]) for r in sink.rows(kind="round")]
     (sc, mc), (sg, mg) = out["cpu"], out[dev]
     for la, lb in zip(tree_leaves(sc.x) + tree_leaves(sc.inner_y.d), tree_leaves(sg.x) + tree_leaves(sg.inner_y.d)):
         check(torch.allclose(lb.cpu(), la, **TOL), "small fabric run: the card's state differs from the host's")
     for k in ("sim_seconds", "wire_bytes"):
         check(np.array_equal(mc[k], mg[k]), f"small fabric run: {k} differs between card and host")
+    check(costs["cpu"] == costs[dev], f"small fabric run: (compute_flops, hbm_bytes) {costs[dev][0]} on the card, "
+          f"{costs['cpu'][0]} on the host")
     print(f"[small] er(10, 0.4) with dropout and a WAN fabric: card and host agree; wire_bytes "
-          f"{mg['wire_bytes'].tolist()}, sim_seconds {mg['sim_seconds'].tolist()}")
+          f"{mg['wire_bytes'].tolist()}, sim_seconds {mg['sim_seconds'].tolist()}, (compute_flops, hbm_bytes) "
+          f"{costs[dev][0]}")
 
 
 def main() -> int:
@@ -986,16 +1088,18 @@ def main() -> int:
         check(len(found) == 1, f"ptxas reported no kernel {fn}")
         entry["registers"], st, ld = found[0]
         entry["spill_bytes"] = st + ld
-    # 4. main paths: kernel_topk, then kernel_quant on the same task
+    # 4. main paths: kernel_topk, then kernel_quant on the same task (f32 leaves)
     bundle = build_task(dev)
-    # (the main paths run f32 leaves: the bf16 instances' counts are read all the same)
     state, cfg, topo, counts = phase_main_path(dev, bundle, CFG, "block_topk")
     kernels["block_topk"]["launches"] = counts["block_topk"]
-    kernels["block_topk"]["bf16"]["launches"] = counts["block_topk_bf16"]
     gen = torch.Generator(device=dev).manual_seed(0)
     qstate, qcfg, _, counts = phase_main_path(dev, bundle, CFG_QUANT, "quantize", gen)
     kernels["quantize"]["launches"] = counts["quantize"]
-    kernels["quantize"]["bf16"]["launches"] = counts["quantize_bf16"]
+    check(counts["block_topk_bf16"] == counts["quantize_bf16"] == 0, "an f32 main path launched a bf16 kernel")
+    # the bf16 instances: both compressors on a bf16 leaf of the main width
+    bf16 = phase_bf16_leaf(dev)
+    kernels["block_topk"]["bf16"]["launches"] = bf16["block_topk_bf16"]
+    kernels["quantize"]["bf16"]["launches"] = bf16["quantize_bf16"]
     # 5. wire bytes through pack / unpack, and through the quant codec
     pack_launches, unpack_launches = phase_wire(state, cfg, topo)
     kernels["pack_sparse_blocks"]["launches"] = pack_launches

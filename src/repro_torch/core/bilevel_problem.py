@@ -13,7 +13,10 @@ per-node losses.  Nodes share no parameters, so the gradient of the SUM of
 the per-node losses is, node by node, the gradient of each node's own loss
 (what the reference gets with ``vmap(grad)``).  A loss that does not read
 the differentiated argument (the coefficient-tuning f does not read x)
-yields zeros, not None.
+yields zeros, not None.  The oracles run traced gradients
+(`repro_torch.core.oracle_graph`): no forward work that a gradient never
+reads, and x's share of the forward once per x, as XLA leaves the
+reference's jitted round.
 
 ``oracle_calls`` counts node-stacked oracle evaluations by kind — one
 ``ll_grad`` per y/z gradient (h = f + lam*g is ONE oracle) and three
@@ -30,6 +33,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.oracle_graph import OracleGraphs
 from repro_torch.core.types import Tree, broadcast_nodes, tree_leaves, tree_map, tree_unflatten
 from repro_torch.obs.compute import record_oracle
 
@@ -63,6 +67,8 @@ class BilevelProblem:
     data_g: Tree  # node-stacked training shards
     m: int
     oracle_calls: dict = dataclasses.field(default_factory=dict, compare=False)
+    # traced oracle gradients, per problem: they capture its data
+    graphs: OracleGraphs = dataclasses.field(default_factory=OracleGraphs, init=False, compare=False, repr=False)
 
     def record_oracle(self, kind: str, n: int = 1) -> None:
         record_oracle(kind, n, self.oracle_calls)
@@ -76,24 +82,30 @@ class BilevelProblem:
 
         def fn(y, x):
             self.record_oracle("ll_grad")
-            return grad_of_sum(h, (x, y), 1)
+            return self.graphs.grad(("h", lam), h, x, y, 1)
 
         return fn
 
     def grad_y_g(self):
         def fn(z, x):
             self.record_oracle("ll_grad")
-            return grad_of_sum(self.g, (x, z, self.data_g), 1)
+            return self.graphs.grad("g", self._g, x, z, 1)
 
         return fn
 
     def hyper_grad(self, x, y, z, lam):
         """u_i per Eq. (4)/(24) — fully first-order hypergradient estimate."""
         self.record_oracle("ul_grad", 3)  # gfx, ggx_y, ggx_z: three x-partials
-        gfx = grad_of_sum(self.f, (x, y, self.data_f), 0)
-        ggx_y = grad_of_sum(self.g, (x, y, self.data_g), 0)
-        ggx_z = grad_of_sum(self.g, (x, z, self.data_g), 0)
+        gfx = self.graphs.grad("f", self._f, x, y, 0)
+        ggx_y = self.graphs.grad("g", self._g, x, y, 0)
+        ggx_z = self.graphs.grad("g", self._g, x, z, 0)
         return tree_map(lambda a, b, c: a + lam * (b - c), gfx, ggx_y, ggx_z)
+
+    def _f(self, x, y):
+        return self.f(x, y, self.data_f)
+
+    def _g(self, x, y):
+        return self.g(x, y, self.data_g)
 
     # ---------------- evaluation-only helpers -----------------------------
     def mean_f(self, x_bar, y_bar):

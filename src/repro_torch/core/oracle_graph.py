@@ -1,0 +1,209 @@
+"""Traced oracle gradients: dead code removed, round-invariant work shared.
+
+The reference jits its round, and XLA removes dead code, merges common
+subexpressions and hoists loop-invariant work out of the inner loops
+before the round runs (and before ``repro.obs.compute`` counts its dots).
+The port runs eagerly, so it does the same to its oracles here.
+
+Every C2DFB oracle is the gradient of a node-stacked loss L(x, v), summed
+over the nodes, with respect to x (the hypergradient's x-partials) or to v
+(the inner loops' y and z).  `OracleGraphs.grad` traces it once per (kind,
+argument, shapes, dtypes, device) with ``make_fx(torch.func.grad(...))``
+and then:
+
+* **Removes dead code.**  The backward's seed ``ones_like(loss)`` reads the
+  loss, so the whole forward stays live even where the gradient never
+  reads it (coefficient tuning's f has no x; its g reads x only in the
+  ridge term).  The seed becomes ``ones`` of the loss's static shape, and
+  the graph's dead code is eliminated: those x-partials run no logits
+  product.
+* **Shares round-invariant work.**  Within a round every oracle sees the
+  same x and the same data, so a node that reads neither v nor anything
+  computed from v is a function of x alone.  Such nodes are keyed by their
+  expression, one key space for all of a problem's graphs, and each is
+  computed once while x stays the same tensors: the hyper-representation
+  backbone's forward runs once per data shard and round, not in every
+  oracle call.
+
+The losses must be pure functions of (x, v) and the problem's data (which
+the traces capture as constants).  The gradients equal the untraced
+autograd gradients bit for bit: the graphs run the same aten operators on
+the same inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+from torch.fx.experimental.proxy_tensor import make_fx
+from torch.utils._python_dispatch import _disable_current_modes
+
+from repro_torch.core.types import Tree, tree_leaves, tree_unflatten
+
+_ATEN = torch.ops.aten
+
+
+def _signature(tree: Tree):
+    """A hashable (structure, shapes, dtypes, devices) of a tree."""
+    if isinstance(tree, dict):
+        return tuple((k, _signature(tree[k])) for k in sorted(tree))
+    return (tuple(tree.shape), tree.dtype, tree.device)
+
+
+class _Ref:
+    """An invariant node's value, by expression id, inside an op's arguments."""
+
+    __slots__ = ("eid",)
+
+    def __init__(self, eid: int):
+        self.eid = eid
+
+
+def _map(fn: Callable, a: Any) -> Any:
+    if isinstance(a, (list, tuple)):
+        return type(a)(_map(fn, v) for v in a)
+    if isinstance(a, dict):
+        return {k: _map(fn, v) for k, v in a.items()}
+    return fn(a)
+
+
+def _hashable(a: Any) -> Any:
+    if isinstance(a, (list, tuple)):
+        return tuple(_hashable(v) for v in a)
+    if isinstance(a, dict):
+        return tuple((k, _hashable(v)) for k, v in sorted(a.items()))
+    return a
+
+
+def _seed_without_loss(gm: torch.fx.GraphModule) -> None:
+    """Rewrite every ``ones_like(t)`` to ``ones`` of t's static shape, dtype
+    and device, so the gradient's seed no longer reads the loss."""
+    for node in list(gm.graph.nodes):
+        if node.op == "call_function" and node.target == _ATEN.ones_like.default:
+            val = node.meta["val"]
+            with gm.graph.inserting_before(node):
+                ones = gm.graph.call_function(
+                    _ATEN.ones.default, (list(val.shape),), {"dtype": val.dtype, "device": val.device}
+                )
+            node.replace_all_uses_with(ones)
+            gm.graph.erase_node(node)
+    gm.graph.eliminate_dead_code()
+
+
+class _Trace:
+    """One traced gradient, split into its invariant nodes (registered with
+    the problem's `OracleGraphs` by expression) and a GraphModule of the
+    rest, whose inputs are v's leaves and the invariant values it reads."""
+
+    def __init__(self, gm: torch.fx.GraphModule, nx: int, graphs: "OracleGraphs"):
+        placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
+        eid: dict[torch.fx.Node, int] = {}  # invariant node -> expression id
+        for i, node in enumerate(placeholders[:nx]):
+            eid[node] = graphs._intern(("x", i), ("x", i))
+        variant = set(placeholders[nx:])
+        for node in gm.graph.nodes:
+            if node.op == "get_attr":
+                const = getattr(gm, node.target)
+                eid[node] = graphs._intern(("const", id(const)), ("const", const))
+            elif node.op == "call_function":
+                schema = getattr(node.target, "_schema", None)
+                if schema is not None and schema.is_mutable:
+                    raise RuntimeError(f"a traced gradient updates a tensor in place ({node.target})")
+                inputs = node.all_input_nodes
+                if any(n in variant for n in inputs):
+                    variant.add(node)
+                    continue
+                key = (node.target, _hashable(_map(lambda a: ("n", eid[a]) if isinstance(a, torch.fx.Node) else a,
+                                                   (node.args, node.kwargs))))
+                args, kwargs = _map(lambda a: _Ref(eid[a]) if isinstance(a, torch.fx.Node) else a,
+                                    (node.args, node.kwargs))
+                eid[node] = graphs._intern(key, ("call", node.target, args, kwargs))
+        # the variant part, reading the invariant nodes it uses as inputs
+        graph = torch.fx.Graph()
+        env: dict[torch.fx.Node, torch.fx.Node] = {}
+        for node in placeholders[nx:]:
+            env[node] = graph.placeholder(node.name)
+        self.frontier: list[int] = []
+
+        def read(n: torch.fx.Node) -> torch.fx.Node:
+            if n not in env:  # an invariant value, an input of this part
+                env[n] = graph.placeholder(f"inv_{len(self.frontier)}")
+                self.frontier.append(eid[n])
+            return env[n]
+
+        for node in gm.graph.nodes:
+            if node in variant and node.op == "call_function":
+                env[node] = graph.node_copy(node, read)
+            elif node.op == "output":
+                # an invariant output is copied, so no caller holds the memo's tensor
+                outs = [read(n) if n in variant else graph.call_function(_ATEN.clone.default, (read(n),))
+                        for n in node.args[0]]
+                graph.output(outs)
+        self.module = torch.fx.GraphModule(gm, graph)
+
+
+class OracleGraphs:
+    """A problem's traced oracle gradients and the memo of their
+    round-invariant values (valid while x is the same tensors)."""
+
+    def __init__(self):
+        self._traces: dict[tuple, _Trace] = {}
+        self._eids: dict[Any, int] = {}  # expression -> id
+        self._ops: list[tuple] = []      # id -> how to compute it
+        self._memo: dict[int, torch.Tensor] = {}
+        self._tokens: tuple | None = None
+        self._x: list[torch.Tensor] = []  # the memo's x, kept alive: its ids key the memo
+        self.traces = 0
+
+    def _intern(self, key, op) -> int:
+        eid = self._eids.get(key)
+        if eid is None:
+            eid = self._eids[key] = len(self._ops)
+            self._ops.append(op)
+        return eid
+
+    def _value(self, eid: int) -> torch.Tensor:
+        val = self._memo.get(eid)
+        if val is None:
+            op = self._ops[eid]
+            if op[0] == "x":
+                val = self._x[op[1]]
+            elif op[0] == "const":
+                val = op[1]
+            else:
+                args, kwargs = _map(lambda a: self._value(a.eid) if isinstance(a, _Ref) else a, (op[2], op[3]))
+                val = op[1](*args, **kwargs)
+            self._memo[eid] = val
+        return val
+
+    def grad(self, kind: Any, loss: Callable[[Tree, Tree], torch.Tensor], x: Tree, v: Tree, argnum: int) -> Tree:
+        """The gradient of ``loss(x, v).sum()`` with respect to x (argnum 0)
+        or v (argnum 1).  ``kind`` names the loss: one loss a kind for the
+        life of the problem."""
+        wrt = (x, v)[argnum]
+        xl, vl = tree_leaves(x), tree_leaves(v)
+        key = (kind, argnum, _signature(x), _signature(v))
+        trace = self._traces.get(key)
+        if trace is None:
+            trace = self._traces[key] = self._trace(loss, x, v, argnum)
+        tokens = tuple((id(t), t._version) for t in xl)
+        if tokens != self._tokens:  # another x: its invariant values are not computed yet
+            self._memo.clear()
+            self._tokens, self._x = tokens, xl
+        outs = trace.module(*vl, *(self._value(e) for e in trace.frontier))
+        return tree_unflatten(wrt, outs)
+
+    def _trace(self, loss, x: Tree, v: Tree, argnum: int) -> _Trace:
+        nx = len(tree_leaves(x))
+
+        def flat(*leaves):
+            args = (tree_unflatten(x, leaves[:nx]), tree_unflatten(v, leaves[nx:]))
+            return tree_leaves(torch.func.grad(lambda a, b: loss(a, b).sum(), argnums=argnum)(*args))
+
+        # traced on the real inputs, outside any counting mode around the call
+        with _disable_current_modes():
+            gm = make_fx(flat)(*tree_leaves(x), *tree_leaves(v))
+        _seed_without_loss(gm)
+        self.traces += 1
+        return _Trace(gm, nx, self)

@@ -27,7 +27,6 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.core.bilevel_problem import BilevelProblem
@@ -36,9 +35,12 @@ from repro_torch.data.partition import label_skew_partition, stack_shards
 
 
 def _softmax_xent(logits, labels, num_classes):
-    """Per-node mean cross-entropy: logits (m, n, c), labels (m, n) -> (m,)."""
+    """Per-node mean cross-entropy: logits (m, n, c), labels (m, n) -> (m,).
+    The one-hot rows compare labels with a class range, as jax.nn.one_hot
+    does: no host read of the labels, so the gradient traces."""
     logp = torch.log_softmax(logits, dim=-1)
-    onehot = F.one_hot(labels, num_classes).to(logp.dtype)
+    classes = torch.arange(num_classes, device=labels.device)
+    onehot = (labels.unsqueeze(-1) == classes).to(logp.dtype)
     return -torch.mean(torch.sum(onehot * logp, dim=-1), dim=-1)
 
 

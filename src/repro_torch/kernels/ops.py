@@ -4,33 +4,17 @@ counterpart).
 Blocks are cut PER NODE, as the reference cuts them (it vmaps the
 compressor over the node axis and pads each node's flat leaf on its own),
 and every node's blocks of a leaf go to ONE launch of m * nb rows: no block
-ever straddles two nodes.  The quantizer sees (m * nb, block) zero-padded
-tiles; block top-k reads the (m, d) leaf in place.
+ever straddles two nodes.  Both kernels read the (m, d) leaf in place
+where d % 4 == 0; the quantizer's samples lie in the (m * nb, block) tile
+layout of their draw.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels.quantize import quantize_kernel
+from repro_torch.kernels.quantize import quantize_leaf
 from repro_torch.kernels.topk_compress import block_topk_leaf
-
-
-def to_blocks(x: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
-    """Node-stacked (m, ...) -> ((m * nb, block) zero-padded tiles, d), where
-    d is the flat size of one node's leaf."""
-    m = x.shape[0]
-    flat = x.reshape(m, -1)
-    d = flat.shape[1]
-    nb = -(-d // block)
-    padded = F.pad(flat, (0, nb * block - d))
-    return padded.reshape(m * nb, block), d
-
-
-def from_blocks(tiles: torch.Tensor, d: int, like: torch.Tensor) -> torch.Tensor:
-    m = like.shape[0]
-    return tiles.reshape(m, -1)[:, :d].reshape(like.shape)
 
 
 def block_topk_nodes(x: torch.Tensor, ratio: float = 0.2, block: int = 1024) -> torch.Tensor:
@@ -47,14 +31,12 @@ def block_topk(x: torch.Tensor, ratio: float = 0.2, block: int = 1024) -> torch.
 
 def quantize_nodes(x: torch.Tensor, u: torch.Tensor, bits: int = 4, block: int = 1024) -> torch.Tensor:
     """Kernel-backed stochastic quantizer of every node's copy of a
-    node-stacked leaf (dequantized output).  ``u`` holds the U[0,1) samples
-    of the (m * nb, block) tiles, node-major.  The zero-padded tail of a
-    node's last block quantizes to nonzero grid points (2^bits - 1 levels
-    put no point on zero); ``from_blocks`` slices it off, as the reference
-    does."""
-    tiles, d = to_blocks(x, block)
-    out, _ = quantize_kernel(tiles, u, bits)
-    return from_blocks(out, d, x)
+    node-stacked leaf (dequantized output), one launch that reads the leaf in
+    place where it can.  ``u`` holds the U[0,1) samples of the (m * nb,
+    block) zero-padded tiles, node-major.  The padded tail of a node's last
+    block would quantize to nonzero grid points (2^bits - 1 levels put no
+    point on zero); it is never written, as the reference slices it off."""
+    return quantize_leaf(x.reshape(x.shape[0], -1), u, bits, block).reshape(x.shape)
 
 
 def quantize(x: torch.Tensor, u: torch.Tensor, bits: int = 4, block: int = 1024) -> torch.Tensor:

@@ -14,12 +14,17 @@ Three layers, as in the reference:
    `check_structure` pins the two views to each other: a kind the formula
    says is zero must have zero counted calls, a nonzero kind at least one.
 
-2. **FLOPs of one round.**  `round_cost` runs a run's round 0 under
-   ``torch.utils.flop_counter.FlopCounterMode`` and counts its FLOPs
-   (matrix products, as PyTorch's counter sees them).  These
-   FLOPs are NOT XLA's (the reference walks the compiled HLO), and are
-   never compared with them.  ``hbm_bytes``, ``collective_bytes`` and
-   ``compile_seconds`` have no counterpart here and stay None.
+2. **FLOPs and dot bytes of one round.**  `round_cost` runs a run's round
+   0 under ``torch.utils.flop_counter.FlopCounterMode`` and counts its
+   FLOPs (matrix products, as PyTorch's counter sees them), and beside it
+   `DotBytes` counts ``hbm_bytes``: the operand and output bytes of every
+   matrix product, the reference's definition
+   (``repro.launch.hlo_cost``: lhs + rhs + out bytes of every dot).  The
+   reference walks the compiled HLO of a round that XLA has rid of dead
+   code and loop-invariant work; the port's oracles do the same to their
+   traced gradients (`repro_torch.core.oracle_graph`), so both fields
+   equal the reference's.  ``collective_bytes`` and ``compile_seconds``
+   have no counterpart here and stay None.
 
 3. **Device memory.**  `memory_peak_bytes` reads the CUDA allocator's
    high-water mark on the card and returns None on the CPU, as the
@@ -45,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 #: every oracle kind an engine may account — `record_oracle` rejects
 #: anything else so a typo'd tag cannot silently split a count
@@ -153,11 +159,43 @@ def check_structure(label: str, expected: dict[str, int], sites: dict[str, int])
 # ---------------------------------------------------------------------------
 
 
+_ATEN = torch.ops.aten
+#: the matrix products and the positions of their two operands (a bias
+#: added by addmm / baddbmm is not an operand of the product)
+DOT_OPERANDS = {
+    _ATEN.mm: (0, 1), _ATEN.bmm: (0, 1), _ATEN.mv: (0, 1), _ATEN.dot: (0, 1),
+    _ATEN.addmm: (1, 2), _ATEN.baddbmm: (1, 2),
+}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class DotBytes(TorchDispatchMode):
+    """Counts ``bytes``: each matrix product's two operands and its output,
+    by their shapes and dtypes (``torch.matmul`` reaches the products it
+    decomposes into)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        operands = DOT_OPERANDS.get(func.overloadpacket)
+        if operands is not None:
+            self.bytes += sum(_nbytes(args[i]) for i in operands) + _nbytes(out)
+        return out
+
+
 @dataclasses.dataclass(frozen=True)
 class RoundCost:
     """One round body's cost: ``flops`` of the whole node-stacked body (all
-    m nodes) as ``FlopCounterMode`` counts them; the reference's XLA
-    quantities have no counterpart here and are None."""
+    m nodes) as ``FlopCounterMode`` counts them and ``hbm_bytes``, the
+    operand and output bytes of its matrix products (`DotBytes`); the
+    reference's other XLA quantities have no counterpart here and are
+    None."""
 
     flops: float
     hbm_bytes: float | None = None
@@ -177,22 +215,22 @@ def round_cost(
     expected_oracles: dict[str, int] | None = None,
     label: str = "round",
 ):
-    """Run ``fn(*args)`` once under ``FlopCounterMode`` and return its
-    result with the `RoundCost` of that call, after checking the oracle
-    calls it made against ``expected_oracles`` (`check_structure`).
+    """Run ``fn(*args)`` once under ``FlopCounterMode`` and `DotBytes` and
+    return its result with the `RoundCost` of that call, after checking the
+    oracle calls it made against ``expected_oracles`` (`check_structure`).
 
     The reference lowers a round without running it; the port counts a
-    round it runs anyway (a run's round 0).  The counter only observes the
-    operators, so the round computes what it computes without it, and its
+    round it runs anyway (a run's round 0).  The counters only observe the
+    operators, so the round computes what it computes without them, and its
     oracle calls count as the run's own."""
     from torch.utils.flop_counter import FlopCounterMode
 
     before = oracle_trace_counts()
-    with FlopCounterMode(display=False) as counter:
+    with FlopCounterMode(display=False) as counter, DotBytes() as dots:
         out = fn(*args)
     if expected_oracles is not None:
         check_structure(label, expected_oracles, oracle_site_delta(before))
-    return out, RoundCost(flops=float(counter.get_total_flops()))
+    return out, RoundCost(flops=float(counter.get_total_flops()), hbm_bytes=float(dots.bytes))
 
 
 def memory_peak_bytes(device=None) -> int | None:

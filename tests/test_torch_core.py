@@ -367,14 +367,14 @@ def test_packed_records_are_byte_identical(chunk):
     payloads: the reference's function on the same records gives the same
     bytes, which equal chunk-encoding the dense tree."""
     from repro_torch.kernels.pack_residuals import pack_sparse_blocks
-    from repro_torch.kernels.ops import to_blocks
 
     block = 128
     tree = _chunk_tree(np.random.default_rng(chunk + 1))
     leaves = jax.tree.leaves(tree)
     vals, idx, sizes = [], [], []
     for leaf in leaves:
-        tiles, d = to_blocks(torch.from_numpy(leaf).unsqueeze(0), block)
+        d = leaf.size
+        tiles = torch.nn.functional.pad(torch.from_numpy(leaf).reshape(-1), (0, -d % block)).reshape(-1, block)
         k = max(1, int(torch.count_nonzero(tiles, dim=1).max()))
         v, i = pack_sparse_blocks(tiles, k, block)
         vals.append(v)

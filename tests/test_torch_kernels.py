@@ -2,8 +2,10 @@
 top-k), B2 (pack), B3 (unpack) and B4 (stochastic quantizer) against the
 Pallas kernels run in interpret mode and against the reference's jnp
 oracle, bit for bit; the wrappers' blocking per node, shapes and
-contraction.  The CUDA kernels themselves are held to these plain versions
-on the card by chip_smoke.py."""
+contraction; and the arithmetic the B4 kernel computes in place of the
+op-by-op chain (a dequantization table, bf16 division as a product with
+the reciprocal), against that chain.  The CUDA kernels themselves are held
+to these plain versions on the card by chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +30,7 @@ from repro_torch.kernels.pack_residuals import (
     padded_k,
     unpack_sparse_blocks,
 )
-from repro_torch.kernels.quantize import quantize_kernel
+from repro_torch.kernels.quantize import quantize_kernel, quantize_leaf
 from repro_torch.kernels.ref import block_topk_ref, quantize_ref
 from repro_torch.kernels.topk_compress import block_topk_kernel, block_topk_leaf
 
@@ -435,3 +437,142 @@ def test_quantize_wrapper_rejects_bad_inputs():
             quantize_kernel(x, x, bits)
     with pytest.raises(ValueError, match="cpu or cuda"):
         quantize_kernel(x.to("meta"), x.to("meta"), 4)
+
+
+# ---------------------------------------------------------------- B4: what the kernel computes instead
+
+
+def _finite_bf16() -> torch.Tensor:
+    """Every finite bf16 value (both zeros, subnormals, normals)."""
+    allbits = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(torch.int16)
+    x = allbits.view(torch.bfloat16)
+    return x[torch.isfinite(x)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_dequant_table_and_steps_equal_the_op_chain(dtype, bits):
+    """The kernel's dequantization table (((c / levels) * 2) - 1), built once
+    for the codes c in [0, levels], gives what the op chain gives each value
+    of a code tensor; and steps = (y + 1) * (levels / 2) equals ((y + 1) *
+    0.5) * levels for every y in [-1, 1] (all of them in bf16, a dense
+    sample in f32), with lo, steps - lo and the code exact."""
+    dt = DTYPES[dtype][1]
+    levels = (1 << bits) - 1
+    lv = torch.tensor(levels, dtype=dt)
+    chain = lambda q: (q / lv) * 2.0 - 1.0  # noqa: E731  (quantize_ref's dequantization)
+    table = chain(torch.arange(levels + 1).to(dt))
+    codes = torch.from_numpy(np.random.default_rng(bits).integers(0, levels + 1, size=4096))
+    as_int = torch.int16 if dt == torch.bfloat16 else torch.int32
+    assert torch.equal(table[codes].view(as_int), chain(codes.to(dt)).view(as_int))
+    if dt == torch.bfloat16:
+        y = _finite_bf16()
+        y = y[y.float().abs() <= 1.0]
+    else:
+        y = torch.cat([torch.linspace(-1.0, 1.0, 1 << 20), torch.tensor([-1.0, -0.0, 0.0, 1e-30, -1e-30, 1.0])])
+    t1 = y + 1.0
+    want = (t1 * 0.5) * lv
+    got = t1 * torch.tensor(levels / 2, dtype=dt)
+    assert torch.equal(got.view(as_int), want.view(as_int))
+    lo = torch.floor(want)
+    assert torch.equal((want - lo).float(), want.float() - lo.float())  # exact in the dtype
+    assert bool((lo >= 0).all()) and bool((lo <= levels).all())
+
+
+def test_bf16_quotient_is_the_product_with_the_f32_reciprocal():
+    """For every finite bf16 x with |x| <= s: bf16(x / s) == bf16(x *
+    rn32(1 / s)), on 64 seeded bf16 scales at or above the 1e-12 floor and
+    the extremes (the floor itself, 1, 3, the largest bf16)."""
+    rng = np.random.default_rng(0)
+    scales = torch.from_numpy(10.0 ** rng.uniform(-12.0, 38.5, size=64)).to(torch.bfloat16)
+    floor = torch.tensor(1e-12, dtype=torch.bfloat16)
+    extremes = torch.tensor([1.0, 3.0, torch.finfo(torch.bfloat16).max], dtype=torch.bfloat16)
+    scales = torch.cat([scales.clamp_min(floor), floor.reshape(1), extremes])
+    x = _finite_bf16()
+    pairs = 0
+    for s in scales:
+        xs = x[x.float().abs() <= s.float()]
+        quotient = xs / s
+        product = (xs.float() * (1.0 / s.float())).to(torch.bfloat16)
+        assert torch.equal(quotient.view(torch.int16), product.view(torch.int16)), float(s)
+        pairs += xs.numel()
+    assert pairs > 64 * 30_000
+
+
+def _kernel_arithmetic(x: torch.Tensor, u: torch.Tensor, bits: int) -> torch.Tensor:
+    """The B4 kernel's arithmetic written with PyTorch ops: the scale as
+    quantize_ref takes it; y by IEEE division (f32) or as the bf16 of x
+    times the f32 reciprocal (bf16); steps in one product; the code in
+    exact f32; the table's entry times the scale; NaN where steps is NaN."""
+    dt = x.dtype
+    levels = (1 << bits) - 1
+    lv = torch.tensor(levels, dtype=dt)
+    _, scale = quantize_ref(x, u, bits)
+    y = x / scale if dt == torch.float32 else (x.float() * (1.0 / scale.float())).to(dt)
+    steps = ((y + 1.0) * torch.tensor(levels / 2, dtype=dt)).float()
+    lo = torch.floor(steps)
+    code = lo + (u.float() < steps - lo).float()
+    table = (torch.arange(levels + 1).to(dt) / lv) * 2.0 - 1.0
+    out = (table[code.nan_to_num(0.0).long()].float() * scale.float()).to(dt)
+    return torch.where(torch.isnan(steps), torch.full_like(out, float("nan")), out)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_kernel_arithmetic_equals_quantize_ref(dtype, bits):
+    """The kernel's arithmetic gives quantize_ref's values bit for bit on
+    normal rows at many scales and on the edge rows (NaN, +-inf, zeros,
+    ties, -0.0), with subnormal rows too (no JAX here, so none is
+    flushed)."""
+    dt = DTYPES[dtype][1]
+    x = torch.from_numpy(_edge_rows(256, seed=bits))
+    x = torch.cat([x, torch.from_numpy(_quant_inputs(64, 256, seed=bits)[0]), torch.randn((2, 256)) * 1e-39])
+    x = x.to(dt)
+    u = torch.rand(x.shape, generator=torch.Generator().manual_seed(bits)).to(dt)
+    got = _kernel_arithmetic(x, u, bits)
+    want, _ = quantize_ref(x, u, bits)
+    _assert_same(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 300, 302])
+def test_quantize_leaf_equals_the_tiles_and_the_reference(dtype, d):
+    """quantize_leaf on a (3, d) leaf (d a multiple of the block, or not, or
+    d % 4 != 0) equals quantize_kernel on the leaf's zero-padded per-node
+    tiles, cut back, and the reference's jnp oracle on each node's tiles,
+    bit for bit; KernelQuant's node-stacked call gives the same."""
+    block, bits, m = 128, 4, 3
+    nb = -(-d // block)
+    rng = np.random.default_rng(d)
+    x = (rng.normal(size=(m, d)) * rng.uniform(0.01, 10.0, size=(m, 1))).astype(np.float32)
+    x[1, 5] = np.nan
+    jdt, dt = DTYPES[dtype]
+    jx = jnp.asarray(x).astype(jdt)
+    xt = torch.from_numpy(np.asarray(jx).view(np.int16 if dtype == "bf16" else np.int32).copy()).view(dt)
+    u = torch.rand((m * nb, block), generator=torch.Generator().manual_seed(d)).to(dt)
+    got = quantize_leaf(xt, u, bits, block)
+    assert got.shape == (m, d) and got.dtype == dt
+    tiles = torch.nn.functional.pad(xt, (0, nb * block - d)).reshape(m * nb, block)
+    _assert_same(_np(got), _np(quantize_kernel(tiles, u, bits)[0].reshape(m, -1)[:, :d].contiguous()))
+    ju = jnp.asarray(_np(u))
+    for i in range(m):
+        jt = jnp.pad(jx[i], (0, nb * block - d)).reshape(nb, block)
+        want, _ = j_quantize_ref(jt, ju[i * nb : (i + 1) * nb], bits)
+        _assert_same(_np(got[i].contiguous()), np.asarray(want).reshape(-1)[:d])
+    _assert_same(_np(quantize_nodes(xt.reshape(m, d, 1), u, bits, block).reshape(m, d)), _np(got))
+
+
+def test_quantize_leaf_rejects_bad_inputs():
+    leaf = torch.zeros((2, 300))
+    with pytest.raises(ValueError, match="samples of shape"):
+        quantize_leaf(leaf, torch.zeros((2, 128)), 4, 128)
+    with pytest.raises(ValueError):
+        quantize_leaf(torch.zeros(300), torch.zeros((3, 128)), 4, 128)
+    with pytest.raises(TypeError):
+        quantize_leaf(leaf, torch.zeros((6, 128), dtype=torch.bfloat16), 4, 128)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        quantize_leaf(leaf, torch.zeros((2, 300)), 4, 300)
+    with pytest.raises(ValueError, match="bits"):
+        quantize_leaf(leaf, torch.zeros((6, 128)), 9, 128)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        quantize_leaf(leaf.to("meta"), torch.zeros((6, 128), device="meta"), 4, 128)

@@ -3,12 +3,13 @@ reference's (`repro.obs`): the record builders, sinks, timelines, report
 and watch give the reference's output on the same records, and a
 synchronous run with ``obs=`` streams the reference's records.
 
-A run's round records parity-view equal to a LIVE reference run's on
-every field but ``compute_flops`` and ``hbm_bytes`` (the reference counts
-XLA's FLOPs of the compiled round, the port PyTorch's ``FlopCounterMode``
-FLOPs; they are never compared): integers, oracle calls and simulated
-seconds exactly, floats within the golden tolerance (rtol 1e-4, atol
-1e-6).  A run with ``obs`` is bit for bit the run without it."""
+A run's round records parity-view equal to a LIVE reference run's:
+integers, oracle calls, simulated seconds, ``compute_flops`` and
+``hbm_bytes`` exactly (the reference counts the dots of XLA's compiled
+round, the port the matrix products its round runs, with dead code and
+round-invariant work gone from its traced oracles), other floats within
+the golden tolerance (rtol 1e-4, atol 1e-6).  A run with ``obs`` is bit
+for bit the run without it."""
 
 import dataclasses
 import io
@@ -47,8 +48,9 @@ ROOT = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-6
 M, TASK = 6, dict(m=6, n=200, p=30, c=3, h=0.5, seed=0)
 K, T = 2, 3
-# parity-visible fields the two packages compute differently by design
-FLOPS_FIELDS = ("compute_flops", "hbm_bytes")
+# float fields compared exactly: simulated seconds (host numpy on both
+# sides) and the counts of a round's matrix products
+EXACT_FLOATS = ("sim_seconds", "compute_flops", "hbm_bytes")
 
 
 def test_obs_exports_the_reference_names():
@@ -206,7 +208,8 @@ def test_round_cost_counts_flops_once_and_restores_counters():
     out, cost = pobs.round_cost(body, a, b, expected_oracles={"ul_grad": 1}, label="t")
     assert len(calls) == 1 and torch.equal(out, a @ b)
     assert cost.flops == 2 * 4 * 8 * 3
-    assert cost.hbm_bytes is None and cost.compile_seconds is None
+    assert cost.hbm_bytes == (4 * 8 + 8 * 3 + 4 * 3) * 4  # both operands and the output, f32
+    assert cost.compile_seconds is None
     assert pobs.oracle_trace_counts()["ul_grad"] == before.get("ul_grad", 0) + 1
     with pytest.raises(ValueError, match="structurally"):
         pobs.round_cost(body, a, b, expected_oracles={"hvp": 1}, label="t")
@@ -268,10 +271,8 @@ def _assert_rows_match(prow, jrow, what):
     assert set(prow) == set(jrow), what
     for k, jv in jrow.items():
         pv = prow[k]
-        if k in FLOPS_FIELDS:
-            continue
         floats = isinstance(jv, float) or (isinstance(jv, list) and any(isinstance(v, float) for v in jv))
-        if floats and k != "sim_seconds":
+        if floats and k not in EXACT_FLOATS:
             np.testing.assert_allclose(pv, jv, rtol=RTOL, atol=ATOL, err_msg=f"{what} {k}")
         else:
             assert pv == jv, (what, k, pv, jv)
@@ -285,7 +286,8 @@ def test_round_records_parity_view_equal_the_reference(obs_runs):
         _assert_rows_match(p, j, f"round {t}")
         assert p["oracle_calls"] == j["oracle_calls"] == pobs.oracle_calls_for("c2dfb", obs_runs["cfg"], m=M)
         assert p["wire_bytes"] is not None and p["sim_seconds"] is not None
-        assert p["compute_flops"] > 0 and p["hbm_bytes"] is None
+        # the counts at this config (m = 6, n = 200, p = 30, c = 3, K = 2, ring)
+        assert p["compute_flops"] == 179_280.0 and p["hbm_bytes"] == 168_048.0
     prec = obs_runs["psink"].rows(kind="round")
     assert prec[0]["memory_peak_bytes"] is None and all(r["compile_seconds"] is None for r in prec)
 
@@ -344,6 +346,94 @@ def test_run_with_obs_is_bit_for_bit_the_run_without(bundles, compressor, tmp_pa
     recs = pobs.read_jsonl(str(tmp_path / "run.jsonl"))
     assert len([r for r in recs if r["kind"] == "round"]) == T
     assert len([r for r in recs if r["kind"] == "node"]) == T * M
+
+
+# ---------------------------------------------------------------- the round's matrix products
+
+
+# (task, the task function's arguments, compressor, compute_flops, hbm_bytes): the
+# reference's counts, pinned, at T = 1 on a ring with K = 2
+COST_CASES = {
+    "coef-identity": ("coef", TASK, "identity", 179_280.0, 168_048.0),
+    "coef-topk": ("coef", TASK, "topk", 179_280.0, 168_048.0),
+    "coef-kernel_topk": ("coef", TASK, "kernel_topk", 179_280.0, 168_048.0),
+    "hyper-identity": ("hyper", dict(m=4, n=200, side=6, hidden=8, c=3, seed=0), "identity", 396_544.0, 250_368.0),
+    "hyper-kernel_topk": ("hyper", dict(m=4, n=200, side=6, hidden=8, c=3, seed=0), "kernel_topk", 396_544.0, 250_368.0),
+}
+BUILDERS = {"coef": (jtasks.coefficient_tuning_task, ptasks.coefficient_tuning_task),
+            "hyper": (jtasks.hyper_representation_task, ptasks.hyper_representation_task)}
+
+
+def _port_bundle(task, kw):
+    jb = BUILDERS[task][0](**kw)
+    pb = BUILDERS[task][1](**kw, device="cpu")
+    host = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    return jb, dataclasses.replace(pb, x0=from_numpy(host(jb.x0)), y0=from_numpy(host(jb.y0)))
+
+
+@pytest.mark.parametrize("case", sorted(COST_CASES))
+def test_round_cost_equals_the_reference(case):
+    """compute_flops and hbm_bytes of a round record equal the reference's
+    (XLA's dots of the compiled round) on both paper tasks.  The traces are
+    built once per oracle kind, not once per call."""
+    task, kw, compressor, flops, nbytes = COST_CASES[case]
+    jb, pb = _port_bundle(task, kw)
+    m = kw["m"]
+    cfg = dict(K=K, compressor=compressor, comp_ratio=0.2, comp_block=128)
+    jsink, psink = jobs.MemorySink(), pobs.MemorySink()
+    J.run(jb.problem, jtopo.ring(m), J.C2DFBConfig(**cfg), jb.x0, jb.y0, T=1, key=jax.random.PRNGKey(0),
+          obs=jobs.Obs(sink=jsink))
+    P.run(pb.problem, ptopo.ring(m), P.C2DFBConfig(**cfg), pb.x0, pb.y0, T=2, device="cpu", obs=pobs.Obs(sink=psink))
+    j, p = jsink.rows(kind="round")[0], psink.rows(kind="round")[0]
+    assert (j["compute_flops"], j["hbm_bytes"]) == (flops, nbytes)
+    assert (p["compute_flops"], p["hbm_bytes"]) == (flops, nbytes)
+    assert pb.problem.graphs.traces == 4  # h and g in y, f and g in x
+
+
+def _count_ops(fn):
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func.overloadpacket.__name__] = self.ops.get(func.overloadpacket.__name__, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        out = fn()
+    return out, count.ops
+
+
+@pytest.mark.parametrize("task", ["coef", "hyper"])
+def test_hyper_grad_runs_no_unread_forward(task):
+    """hyper_grad equals the untraced autograd gradient bit for bit, counts 3
+    ul_grad oracle calls, and on coefficient tuning runs no bmm at all:
+    neither f (no x) nor g (x in the ridge term only) needs its logits."""
+    from repro_torch.core.bilevel_problem import grad_of_sum
+
+    kw = TASK if task == "coef" else COST_CASES["hyper-identity"][1]
+    _, pb = _port_bundle(task, kw)
+    problem, lam = pb.problem, 10.0
+    rng = np.random.default_rng(4)
+    y = ptypes.tree_map(lambda v: v + torch.from_numpy(rng.normal(size=tuple(v.shape)).astype(np.float32)), pb.y0)
+    z = ptypes.tree_map(lambda v: v * 0.5, y)
+    problem.oracle_calls.clear()
+    for _ in range(2):  # the second call finds its traces and x's values built
+        got, ops = _count_ops(lambda: problem.hyper_grad(pb.x0, y, z, lam))
+        if task == "coef":
+            assert ops.get("bmm", 0) == 0 and ops.get("mm", 0) == 0, ops
+        else:
+            assert ops.get("bmm", 0) > 0
+    assert problem.oracle_calls == {"ul_grad": 6}
+    f, g = problem.f, problem.g
+    gfx = grad_of_sum(f, (pb.x0, y, problem.data_f), 0)
+    gy, gz = (grad_of_sum(g, (pb.x0, v, problem.data_g), 0) for v in (y, z))
+    want = ptypes.tree_map(lambda a, b, c: a + lam * (b - c), gfx, gy, gz)
+    for a, b in zip(ptypes.tree_leaves(got), ptypes.tree_leaves(want)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------- report and watch

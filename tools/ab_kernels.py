@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Time an earlier build of the port's top-k and pack kernels against the
-current one on one CUDA card, in turns, and dump both builds' SASS.
+"""Time an earlier build of the port's top-k, pack and quantizer kernels
+against the current one on one CUDA card, in turns, and dump both builds'
+SASS.
 
     git archive <commit> src/repro_torch/kernels/csrc | tar -x -C old/
     python3 tools/ab_kernels.py old/src/repro_torch/kernels/csrc --out DIR
 
 The earlier sources must export the tile entry points of the current ones
-(``block_topk_f32``, ``block_topk_bf16``, ``pack_sparse_blocks_f32``, with
-the signatures of ``_build.SIGNATURES``).  Both builds use the port's nvcc flags.  Each build
+(``block_topk_f32``, ``block_topk_bf16``, ``pack_sparse_blocks_f32``,
+``quantize_f32``, ``quantize_bf16``, with the signatures of
+``_build.SIGNATURES``).  Both builds use the port's nvcc flags.  Each build
 is first checked bit for bit against the plain versions at the main path's
 shapes (block top-k f32 and bf16 at (19,850, 1,024), k = 205; pack at
-(1,985, 1,024) of its output).  Then each kernel is timed in the order
-earlier, current, current, earlier, as chip_smoke.py times a kernel (device
-time by torch.profiler, call time by CUDA events).  The SASS of both
-libraries goes to DIR, with each kernel's instruction count by opcode, in
-all and in its first loop, printed for the instances the main path
-launches.
+(1,985, 1,024) of its output; the quantizer f32 and bf16 at (19,850, 1,024),
+bits 4).  Then each kernel is timed in the order earlier, current, current,
+earlier, as chip_smoke.py times a kernel (device time by torch.profiler,
+call time by CUDA events); the current quantizer's leaf entry point (the
+(10, 2,032,620) leaf read in place) is timed in the current turns.  The
+SASS of both libraries goes to DIR, with each kernel's instruction count
+by opcode, in all and in each loop, printed for the instances the main path
+launches; for the quantizer also the instructions a coded value (one FRND,
+its floor, a value: a loop's instructions over its FRND, or in the
+unrolled kernel the span between a code path's first and last FRND).
 """
 
 from __future__ import annotations
@@ -39,9 +45,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.pack_residuals import pack_sparse_blocks_ref, padded_k  # noqa: E402
-from repro_torch.kernels.ref import block_topk_ref  # noqa: E402
+from repro_torch.kernels.ref import block_topk_ref, quantize_ref  # noqa: E402
 
-SOURCES = ("topk_compress", "pack_residuals")
+SOURCES = ("topk_compress", "pack_residuals", "quantize")
 
 
 def build(csrc: Path, out: Path) -> dict[str, ctypes.CDLL]:
@@ -65,11 +71,12 @@ def build(csrc: Path, out: Path) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def sass_counts(lib: Path, dump: Path) -> dict[str, tuple[collections.Counter, collections.Counter]]:
-    """{kernel: (opcode counts of the whole kernel, of its first loop)} from
-    cuobjdump -sass, whose text goes to ``dump``.  The loop is the span from
-    the target of the first backward branch to that branch: the bisection
-    round of block top-k (its 24 rounds are not unrolled)."""
+def sass_counts(lib: Path, dump: Path) -> dict[str, tuple[collections.Counter, list[collections.Counter], list[int]]]:
+    """{kernel: (opcode counts of the whole kernel, of each loop, the
+    positions of its FRND instructions)} from cuobjdump -sass, whose text
+    goes to ``dump``.  A loop is the span from the target of a backward
+    branch to that branch: the first is the bisection round of block top-k
+    (its 24 rounds are not unrolled)."""
     text = subprocess.run(["cuobjdump", "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
     dump.write_text(text)
     funcs, cur = {}, None
@@ -80,14 +87,25 @@ def sass_counts(lib: Path, dump: Path) -> dict[str, tuple[collections.Counter, c
             cur.append((int(m.group(1), 16), m.group(3).split(".")[0], m.group(4)))
     out = {}
     for fn, ins in funcs.items():
-        loop = collections.Counter()
+        loops = []
         for addr, op, args in ins:
             tgt = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
             if tgt and int(tgt.group(1), 16) < addr:
-                loop.update(o for a, o, _ in ins if int(tgt.group(1), 16) <= a <= addr)
-                break
-        out[fn] = (collections.Counter(op for _, op, _ in ins), loop)
+                loops.append(collections.Counter(o for a, o, _ in ins if int(tgt.group(1), 16) <= a <= addr))
+        frnd = [i for i, (_, op, _) in enumerate(ins) if op == "FRND"]
+        out[fn] = (collections.Counter(op for _, op, _ in ins), loops, frnd)
     return out
+
+
+def per_value(frnd: list[int]) -> list[float]:
+    """The quantizer codes a value with one FRND (its floor).  The current
+    kernel unrolls a lane's V values twice, once in each code path (finite
+    scale first, then NaN or inf): per path, the instructions from its first
+    floor to its last over V - 1, the instructions a coded value there."""
+    half = len(frnd) // 2
+    if half < 2:
+        return []
+    return [(frnd[half - 1] - frnd[0]) / (half - 1), (frnd[-1] - frnd[half]) / (half - 1)]
 
 
 def main() -> int:
@@ -106,10 +124,18 @@ def main() -> int:
                   "current": build(_build.CSRC, Path(tmp) / "current")}
         for side in builds:
             for n in SOURCES:
-                for fn, (ops, loop) in sass_counts(Path(tmp) / side / f"lib{n}.so", args.out / f"{side}-{n}.sass").items():
-                    if re.search(r"topk_kernelI(f|13__nv_bfloat16)(Li32)?E|pack_kernel", fn):
-                        print(f"[sass] {side} {fn}: {sum(ops.values())} instructions, {dict(ops.most_common(12))}; "
-                              f"first loop {sum(loop.values())} instructions, {dict(loop.most_common(8))}")
+                for fn, (ops, loops, frnd) in sass_counts(Path(tmp) / side / f"lib{n}.so", args.out / f"{side}-{n}.sass").items():
+                    if not re.search(r"topk_kernelI(f|13__nv_bfloat16)(Li32)?E|pack_kernel|"
+                                     r"quant(ize)?_kernelI(f|13__nv_bfloat16)(Li32)?E", fn):
+                        continue
+                    line = f"[sass] {side} {fn}: {sum(ops.values())} instructions, {dict(ops.most_common(12))}"
+                    if loops:
+                        line += f"; loops {[sum(lp.values()) for lp in loops]} instructions, the first {dict(loops[0].most_common(8))}"
+                    if "quant" in fn:
+                        line += (f"; FRND {ops['FRND']}; instructions a coded value: in a loop (loop / its FRND) "
+                                 f"{[sum(lp.values()) / lp['FRND'] for lp in loops if lp['FRND']]}, "
+                                 f"unrolled (each code path) {[] if any(lp['FRND'] for lp in loops) else per_value(frnd)}")
+                    print(line)
 
         dev = "cuda"
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -136,7 +162,28 @@ def main() -> int:
                                                     nb_node, block, kpad, stream), "pack")
             return vals, idx
 
+        bits = 4
+        m, d = 10, 2_032_620  # the main path's leaf: 10 nodes x (101,631 x 20)
+
+        def quant(lib, xin, uin):
+            out = torch.empty_like(xin)
+            scales = torch.empty((rows, 1), dtype=xin.dtype, device=dev)
+            name = "quantize_f32" if xin.dtype == torch.float32 else "quantize_bf16"
+            _build.check(getattr(lib, name)(xin.data_ptr(), uin.data_ptr(), out.data_ptr(), scales.data_ptr(),
+                                            rows, block, bits, stream), name)
+            return out
+
+        def quant_leaf(lib, xin, uin):
+            leaf = xin.reshape(-1)[: m * d].reshape(m, d)
+            out = torch.empty_like(leaf)
+            name = "quantize_leaf_f32" if xin.dtype == torch.float32 else "quantize_leaf_bf16"
+            _build.check(getattr(lib, name)(leaf.data_ptr(), uin.data_ptr(), out.data_ptr(), rows, block, d, bits,
+                                            stream), name)
+            return out
+
         xb = x.to(torch.bfloat16)
+        u = torch.rand(x.shape, generator=gen, device=dev)
+        ub = torch.rand(x.shape, generator=gen, device=dev, dtype=torch.bfloat16)
         rvals, ridx = pack_sparse_blocks_ref(q, kk, block)
         for side, libs in builds.items():
             for xin in (x, xb):
@@ -148,14 +195,32 @@ def main() -> int:
             torch.cuda.synchronize()
             chip_smoke.check(torch.equal(chip_smoke.bits(vals), chip_smoke.bits(rvals)) and torch.equal(idx, ridx),
                              f"{side} pack differs from its plain version")
+            for xin, uin in ((x, u), (xb, ub)):
+                got = quant(libs["quantize"], xin, uin)
+                torch.cuda.synchronize()
+                chip_smoke.check(chip_smoke.same(got, quantize_ref(xin, uin, bits)[0]),
+                                 f"{side} quantize {xin.dtype} differs from its plain version")
+        for xin, uin in ((x, u), (xb, ub)):
+            got = quant_leaf(builds["current"]["quantize"], xin, uin)
+            torch.cuda.synchronize()
+            chip_smoke.check(chip_smoke.same(got, chip_smoke.quant_leaf_want(xin.reshape(-1)[: m * d].reshape(m, d),
+                                                                             uin, bits, block)),
+                             f"current quantize leaf {xin.dtype} differs from its plain version")
         print(f"[check] both builds bit-exact: block_topk f32 and bf16 ({rows}, {block}) k={k}, "
-              f"pack ({nb_node}, {block}) kpad {kpad}")
+              f"pack ({nb_node}, {block}) kpad {kpad}, quantize f32 and bf16 ({rows}, {block}) bits {bits}; "
+              f"the current quantize leaf ({m}, {d}) too")
 
         for side in ("earlier", "current", "current", "earlier"):
             libs = builds[side]
-            for what, fn in (("block_topk_f32", lambda: topk(libs["topk_compress"], x)),
-                             ("block_topk_bf16", lambda: topk(libs["topk_compress"], xb)),
-                             ("pack_sparse_blocks", lambda: pack(libs["pack_residuals"]))):
+            cases = [("block_topk_f32", lambda: topk(libs["topk_compress"], x)),
+                     ("block_topk_bf16", lambda: topk(libs["topk_compress"], xb)),
+                     ("pack_sparse_blocks", lambda: pack(libs["pack_residuals"])),
+                     ("quantize_f32", lambda: quant(libs["quantize"], x, u)),
+                     ("quantize_bf16", lambda: quant(libs["quantize"], xb, ub))]
+            if side == "current":
+                cases += [("quantize_leaf_f32", lambda: quant_leaf(libs["quantize"], x, u)),
+                          ("quantize_leaf_bf16", lambda: quant_leaf(libs["quantize"], xb, ub))]
+            for what, fn in cases:
                 t = chip_smoke.timed(fn)
                 results[what].append(dict(side=side, ms=t["ms"], call_ms=t["call_ms"], timer=t["timer"]))
                 print(f"[ab] {side} {what}: {t}")
