@@ -43,12 +43,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the JSONL's round and node records (oracle calls, compute_flops,
    hbm_bytes), and the host seconds of the codec measurement and of the
    fabric simulation;
-8. small input: C2DFB with kernel_topk and with kernel_quant on a small
+8. the eager asynchronous engine at the same width on the reference's async
+   gate fabric (geo, lognormal stragglers), kernel_topk, T = 3: policy sync
+   bit-identical to run(); bounded 1 and full, each launching block top-k
+   (4*K + 4)*T and pack 4*m*T times; bounded 1 with the acked rule,
+   inverse-age damping, a dropout schedule and a JSONL sink (3 round and
+   30 node records, wire bytes = the sum of each round's streams);
+   kernel_quant with analytic payloads (4*K*T + 1 quantizer launches); and
+   async MDBO and MADSBO, 2 rounds each;
+9. small input: C2DFB with kernel_topk and with kernel_quant on a small
    task through the kernels and through the plain versions on the host,
-   which must agree (the quantizer runs share their samples); and a run on
+   which must agree (the quantizer runs share their samples); a run on
    an Erdos-Renyi graph with a dropout schedule, a fabric and obs, whose
    simulated seconds, wire bytes, compute_flops and hbm_bytes must be equal
-   on the card and the host.
+   on the card and the host; and an async bounded-1 run on that graph,
+   whose ages, bytes, seconds and compute counts must be equal.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -965,6 +974,228 @@ def phase_baselines_fabric(dev, bundle) -> None:
         check(bool(torch.isfinite(mets["hypergrad_norm"])), f"{name} hypergradient is not finite")
 
 
+# the async phase: the reference's async gate fabric (benchmarks/bench_async.py)
+# at the paper's width
+GEO = dict(profile="geo", straggler="lognormal", compute_s=0.05, sigma=0.8, seed=0)
+
+
+def _async_run(tag: str, fn, T_: int):
+    """Run ``fn()`` with the launch counts set to 0 just before and read
+    just after; prints its wall time, per-round wall time and peak device
+    memory.  Returns (result, launch counts)."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    print(f"[async] {tag}: {T_} rounds in {wall!r} s ({wall / T_!r} s a round), launches {counts}, "
+          f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    return out, counts
+
+
+def _finite(tag: str, state, mets) -> None:
+    from repro_torch.core.types import tree_leaves
+
+    for k, v in mets.items():
+        if torch.is_tensor(v):
+            check(bool(torch.isfinite(v.double()).all()), f"{tag}: metric {k} is not finite")
+    for leaf in tree_leaves(state.x):
+        check(bool(torch.isfinite(leaf).all()), f"{tag}: x holds non-finite values")
+
+
+def async_breakdown(problem, topo, cfg, state, ledger) -> None:
+    """Where a bounded-1 async round's wall goes, each part timed alone from
+    the run's final state (outside the counted run): the metering (the 4
+    compressions and the host encoding of the 4*m payloads), the
+    scheduler's drive_round at those sizes, the delayed round body on the
+    last round's ages against the synchronous round body; then one profiled
+    delayed round (device busy share, device time by kernel)."""
+    from repro_torch.async_gossip import AsyncScheduler, c2dfb_masked_round
+    from repro_torch.core.c2dfb import c2dfb_round
+    from repro_torch.core.inner_loop import inner_message_bytes
+    from repro_torch.net import make_fabric
+
+    comp = cfg.make_compressor()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sizes = [np.add(*inner_message_bytes(inner, comp)) for inner in (state.inner_y, state.inner_z)]
+    metering = time.perf_counter() - t0
+    sched = AsyncScheduler(make_fabric(topo, **GEO), policy="bounded", bound=1)
+    t0 = time.perf_counter()
+    sched.drive_round(0, cfg.K, sizes[0], sizes[1], TASK["p"] * 4, GEO["compute_s"] / (2 * cfg.K + 2))
+    scheduling = time.perf_counter() - t0
+    ages = [r.ages for r in ledger.loops[-2:]]
+    depth = sched.depth_for(cfg.K)
+
+    def delayed():
+        return c2dfb_masked_round(state, None, *ages, problem=problem, topo=topo, cfg=cfg, depth=depth)
+
+    walls = {}
+    for name, fn in (("delayed", delayed), ("sync", lambda: c2dfb_round(state, None, problem, topo, cfg))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    print(f"[async breakdown] bounded 1, alone: metering {metering!r} s, scheduler {scheduling!r} s, delayed round "
+          f"body {walls['delayed']!r} s, sync round body {walls['sync']!r} s")
+    events, wall, _ = device_window(delayed, 1)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # union of device intervals, in microseconds
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict[str, list] = {}
+    for e in events:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us()
+        acc[1] += 1
+    print(f"[async breakdown] profiled delayed round body: wall {wall!r} s, device busy {busy / 1e6!r} s, "
+          f"{len(events)} device activities")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[async breakdown]   {us / 1e3:10.3f} ms  {n:5d}x  {name[:90]}")
+
+
+def phase_async(dev, bundle) -> dict:
+    """The eager asynchronous engine at TASK's width with kernel_topk, on the
+    geo fabric with lognormal stragglers, T rounds each:
+
+    * ``policy="sync"``: every age is 0, and the state (x, s_x, y, z) and
+      every metric (measured_bytes = TOPK_ROUND_BYTES) are bit-identical to
+      the synchronous ``run`` with the same config;
+    * bounded 1 (every staleness_max <= 1; its round timed part by part,
+      `async_breakdown`) and full (every age < K): each
+      run (and the sync one) launches B1 (4*K + 4)*T times (4*K in a
+      round's inner steps, 4 metering compressions a round) and B2 4*m*T
+      times (each node's 4 metered messages a round);
+    * bounded 1 with the acked version rule, inverse-age damping, a
+      link-dropout schedule and a JSONL sink: T round and T*m node
+      records, each round's wire_bytes the sum of its bytes_by_stream;
+    * kernel_quant, bounded 1, analytic payloads, 2 rounds: B4 launches
+      4*K a round and once for the analytic probe;
+    * async MDBO and MADSBO, bounded 1, 2 rounds each (Neumann and HIGP
+      steps of 1e-3: the defaults diverge at this width under staleness).
+
+    Returns the async path's launch counts of B1, B2 and B4."""
+    import tempfile
+
+    from repro_torch.async_gossip import run_async, run_baseline_async
+    from repro_torch.core import baselines as B
+    from repro_torch.core.c2dfb import C2DFBConfig, run
+    from repro_torch.core.topology import ring
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.net import LinkDropoutSchedule, make_fabric
+    from repro_torch.obs import JsonlSink, Obs, read_jsonl
+
+    m, K = TASK["m"], CFG["K"]
+    problem, x0, y0 = bundle.problem, bundle.x0, bundle.y0
+    topo, cfg = ring(m), C2DFBConfig(**CFG)
+    want_b1, want_b2 = (4 * K + 4) * T, 4 * m * T
+    launches = {}
+
+    (s0, m0), _ = _async_run("sync run (the reference for policy sync)",
+                             lambda: run(problem, topo, cfg, x0, y0, T=T, device=dev), T)
+    for policy, bound in (("sync", 0), ("bounded", 1), ("full", 0)):
+        tag = f"{policy}{bound if policy == 'bounded' else ''}"
+        (state, mets), counts = _async_run(tag, lambda: run(
+            problem, topo, cfg, x0, y0, T=T, device=dev, fabric=make_fabric(topo, **GEO),
+            async_mode=policy, staleness_bound=bound), T)
+        _finite(tag, state, mets)
+        smax = [int(a) for a in mets["staleness_max"]]
+        print(f"[async] {tag}: staleness_max {smax}, staleness_hist {mets['staleness_hist'].tolist()}, "
+              f"wire_bytes {mets['wire_bytes'].tolist()}, sim_seconds {mets['sim_seconds'].tolist()}, "
+              f"measured_bytes {mets['measured_bytes'].tolist()}")
+        check(counts["block_topk"] == want_b1, f"{tag}: block_topk launched {counts['block_topk']} times, "
+              f"want {want_b1} (4*K a round's steps + 4 metering compressions, T rounds)")
+        check(counts["pack_sparse_blocks"] == want_b2,
+              f"{tag}: pack launched {counts['pack_sparse_blocks']} times, want {want_b2}")
+        launches[tag] = counts
+        if policy == "sync":
+            check(max(smax) == 0, "policy sync mixed a stale version")
+            for a, b in zip(tree_leaves(s0.x) + tree_leaves(s0.s_x) + list(s0.inner_y) + list(s0.inner_z),
+                            tree_leaves(state.x) + tree_leaves(state.s_x) + list(state.inner_y)
+                            + list(state.inner_z)):
+                check(torch.equal(a, b), "policy sync: the state differs from the sync run's bit for bit")
+            for k, v in m0.items():
+                check(torch.equal(v, mets[k]), f"policy sync: metric {k} differs from the sync run's")
+            check(tuple(int(b) for b in mets["measured_bytes"]) == TOPK_ROUND_BYTES, "policy sync: measured_bytes")
+            print("[async] sync: state and metrics bit-identical to run() on the card")
+        elif policy == "bounded":
+            check(max(smax) <= 1, f"bounded 1: staleness_max {smax}")
+            async_breakdown(problem, topo, cfg, state, mets["ledger"])
+        else:
+            check(max(smax) < K and all(len(h) == K for h in mets["staleness_hist"]), f"full: ages {smax}")
+        del state, mets
+
+    # the composed run: acked rule, damping, dropout schedule, telemetry
+    with tempfile.TemporaryDirectory() as tmp:
+        obs = Obs(sink=JsonlSink(f"{tmp}/async.jsonl"))
+        (state, mets), counts = _async_run("bounded1 acked inverse-age dropout obs", lambda: run(
+            problem, topo, cfg, x0, y0, T=T, device=dev, fabric=make_fabric(topo, **GEO), async_mode="bounded",
+            staleness_bound=1, version_rule="acked", mixing_damping="inverse-age",
+            schedule=LinkDropoutSchedule(topo, **DROPOUT), obs=obs), T)
+        obs.close()
+        records = read_jsonl(f"{tmp}/async.jsonl")
+    _finite("composed", state, mets)
+    rounds = [r for r in records if r["kind"] == "round"]
+    nodes = [r for r in records if r["kind"] == "node"]
+    print(f"[async] composed: {len(rounds)} round and {len(nodes)} node records; per round wall_seconds "
+          f"{[r['wall_seconds'] for r in rounds]}, bytes_by_stream {[r['bytes_by_stream'] for r in rounds]}, "
+          f"staleness_max {[r['staleness_max'] for r in rounds]}, compute_flops {rounds[0]['compute_flops']!r}, "
+          f"hbm_bytes {rounds[0]['hbm_bytes']!r}, memory_peak_bytes {rounds[0]['memory_peak_bytes']}")
+    check(len(rounds) == T and len(nodes) == T * m, "composed: wrong record counts")
+    check(all(r["wire_bytes"] == sum(r["bytes_by_stream"].values()) for r in rounds),
+          "composed: a round's wire_bytes is not the sum of its bytes_by_stream")
+    check(all("ack" in r["bytes_by_stream"] for r in rounds), "composed: the acked rule put no ack on the wire")
+    check(all(r["staleness_max"] <= 1 for r in rounds), "composed: bounded 1 exceeded its bound")
+    check(counts["block_topk"] == want_b1 and counts["pack_sparse_blocks"] == want_b2,
+          f"composed: launches {counts}, want block_topk {want_b1} and pack {want_b2}")
+    launches["composed"] = counts
+    del state, mets
+
+    # kernel_quant, analytic payloads (the host quant codec would take seconds
+    # a round to measure them)
+    Tq = 2
+    qcfg = C2DFBConfig(**CFG_QUANT)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (state, mets), counts = _async_run("kernel_quant bounded1 analytic", lambda: run_async(
+        problem, topo, qcfg, x0, y0, Tq, gen, make_fabric(topo, **GEO), policy="bounded", bound=1,
+        payload_bytes="analytic", device=dev), Tq)
+    _finite("kernel_quant", state, mets)
+    want_q = 4 * K * Tq + 1  # the rounds' steps, and the analytic probe once
+    check(counts["quantize"] == want_q, f"kernel_quant: quantize launched {counts['quantize']} times, want {want_q}")
+    check(counts["block_topk"] == 0 and counts["quantize_bf16"] == 0, f"kernel_quant: launches {counts}")
+    print(f"[async] kernel_quant: wire_bytes {mets['wire_bytes'].tolist()}, staleness_max "
+          f"{mets['staleness_max'].tolist()}")
+    launches["kernel_quant"] = counts
+    del state, mets
+
+    # at this width the default Neumann and HIGP steps (0.1) diverge within
+    # the first round once the lower level mixes stale versions (so does the
+    # reference's engine on the CPU): steps of 1e-3 keep both finite
+    for alg, bcfg in (("mdbo", B.MDBOConfig(neumann_eta=1e-3)), ("madsbo", B.MADSBOConfig(eta_v=1e-3))):
+        (state, mets), counts = _async_run(f"{alg} bounded1", lambda: run_baseline_async(
+            alg, problem, topo, bcfg, x0, y0, BASELINE_ROUNDS, make_fabric(topo, **GEO), policy="bounded",
+            bound=1, device=dev), BASELINE_ROUNDS)
+        _finite(alg, state, mets)
+        print(f"[async] {alg}: hypergrad_norm {mets['hypergrad_norm'].tolist()}, wire_bytes "
+              f"{mets['wire_bytes'].tolist()}, sim_seconds {mets['sim_seconds'].tolist()}, max age "
+              f"{mets['ledger'].max_age()}")
+        check(mets["ledger"].max_age() <= 1, f"{alg}: bounded 1 exceeded its bound")
+        del state, mets
+    return dict(
+        block_topk=launches["bounded1"]["block_topk"], pack_sparse_blocks=launches["bounded1"]["pack_sparse_blocks"],
+        quantize=launches["kernel_quant"]["quantize"],
+    )
+
+
 # the Erdős–Rényi graph make_topology("er", 10, p=0.4, seed=0) draws
 ER_EDGES = [(0, 1), (0, 5), (0, 6), (1, 2), (1, 4), (1, 6), (1, 7), (2, 6), (2, 7),
             (2, 8), (2, 9), (3, 7), (4, 8), (5, 9), (6, 8), (6, 9), (7, 9), (8, 9)]
@@ -1053,6 +1284,41 @@ def phase_small_fabric(dev):
     print(f"[small] er(10, 0.4) with dropout and a WAN fabric: card and host agree; wire_bytes "
           f"{mg['wire_bytes'].tolist()}, sim_seconds {mg['sim_seconds'].tolist()}, (compute_flops, hbm_bytes) "
           f"{costs[dev][0]}")
+    phase_small_async(dev, topo, cfg)
+
+
+def phase_small_async(dev, topo, cfg):
+    """An async bounded-1 run on the Erdős–Rényi graph with the geo fabric
+    and obs, on the card and on the host: ages, staleness, wire bytes,
+    simulated seconds, measured bytes and the round records' compute_flops
+    and hbm_bytes equal; the states within TOL."""
+    from repro_torch.async_gossip import run_async
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.data.bilevel_tasks import coefficient_tuning_task
+    from repro_torch.net import make_fabric
+    from repro_torch.obs import MemorySink, Obs
+
+    out, costs, ledgers = {}, {}, {}
+    for d in ("cpu", dev):
+        b = coefficient_tuning_task(m=10, n=400, p=64, c=4, seed=0, device=d)
+        sink = MemorySink()
+        out[d] = run_async(b.problem, topo, cfg, b.x0, b.y0, 3, fabric=make_fabric(topo, **GEO), policy="bounded",
+                           bound=1, obs=Obs(sink=sink), device=d)
+        costs[d] = [(r["compute_flops"], r["hbm_bytes"]) for r in sink.rows(kind="round")]
+        ledgers[d] = out[d][1]["ledger"]
+    (sc, mc), (sg, mg) = out["cpu"], out[dev]
+    for la, lb in zip(tree_leaves(sc.x) + tree_leaves(sc.inner_y.d), tree_leaves(sg.x) + tree_leaves(sg.inner_y.d)):
+        check(torch.allclose(lb.cpu(), la, **TOL), "small async run: the card's state differs from the host's")
+    for k in ("sim_seconds", "wire_bytes", "staleness_max", "staleness_mean", "staleness_hist"):
+        check(np.array_equal(mc[k], mg[k]), f"small async run: {k} differs between card and host")
+    check(torch.equal(mc["measured_bytes"], mg["measured_bytes"].cpu()), "small async run: measured_bytes differ")
+    check(all(np.array_equal(a.ages, b.ages) for a, b in zip(ledgers["cpu"].loops, ledgers[dev].loops)),
+          "small async run: ages differ between card and host")
+    check(costs["cpu"] == costs[dev], f"small async run: (compute_flops, hbm_bytes) {costs[dev][0]} on the card, "
+          f"{costs['cpu'][0]} on the host")
+    print(f"[small] async bounded 1 on er(10, 0.4) with the geo fabric: card and host agree; wire_bytes "
+          f"{mg['wire_bytes'].tolist()}, staleness_max {mg['staleness_max'].tolist()}, (compute_flops, hbm_bytes) "
+          f"{costs[dev][0]}")
 
 
 def main() -> int:
@@ -1113,8 +1379,13 @@ def main() -> int:
     fab = phase_fabric(dev, bundle)
     kernels["block_topk"]["fabric_launches"] = fab["block_topk"]
     kernels["pack_sparse_blocks"]["fabric_launches"] = fab["pack_sparse_blocks"]
+    # 8. the eager asynchronous engine (C2DFB, MDBO, MADSBO) at the same width
+    asy = phase_async(dev, bundle)
+    kernels["block_topk"]["async_launches"] = asy["block_topk"]
+    kernels["pack_sparse_blocks"]["async_launches"] = asy["pack_sparse_blocks"]
+    kernels["quantize"]["async_launches"] = asy["quantize"]
     del bundle
-    # 8. small input, card against host (with a fabric and a schedule too)
+    # 9. small input, card against host (with a fabric and a schedule, and async too)
     phase_small_input(dev)
 
     print(json.dumps({"kernels": list(kernels.values())}))

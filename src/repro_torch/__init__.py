@@ -4,7 +4,10 @@ reference).
 The layout mirrors ``repro``: ``core`` (trees, topology, gossip, oracles,
 compressors, Algorithm 2 inner loop, Algorithm 1 outer loop), ``data``
 (the paper's two tasks), ``kernels`` (hand-written Hopper kernels with
-plain PyTorch versions beside them) and ``net`` (exact wire codecs).
+plain PyTorch versions beside them), ``net`` (exact wire codecs, the
+network fabric, topology schedules), ``obs`` (telemetry), ``async_gossip``
+(the eager asynchronous engine) and ``transport`` (the simulated
+transport the async scheduler reads arrivals through).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit ``device="cpu"`` they raise.  Importing this

@@ -21,7 +21,9 @@ not meter, counts ``ll_grad`` per lower-level gradient step and three
 C2DFB(nc) draws from ``generator`` in the order of
 `repro_torch.core.compression` (per step: the d message, then the s one).
 MDBO and MADSBO take a network ``fabric`` (their dense phases priced as
-the reference prices them); the async rounds come with a later slice.
+the reference prices them); `mdbo_round_async` and `madsbo_round_async`
+are their staleness-gated rounds, driven by
+`repro_torch.async_gossip.engine.run_baseline_async`.
 """
 
 from __future__ import annotations
@@ -44,11 +46,8 @@ from repro_torch.core.types import (
     node_consensus_dist,
     node_mean,
     tree_count,
-    tree_dot,
-    tree_leaves,
     tree_map,
     tree_sq_norm,
-    tree_unflatten,
 )
 from repro_torch.net.fabric import edge_list
 
@@ -57,39 +56,28 @@ from repro_torch.net.fabric import edge_list
 # ---------------------------------------------------------------------------
 
 
-def _second_order(problem: BilevelProblem, x: Tree, y: Tree, v: Tree, argnum: int) -> Tree:
-    """d/d(args[argnum]) of <grad_y sum_i g_i(x_i, y_i), v>.  Nodes share
-    no parameters, so node by node this is the per-node product the
-    reference takes with vmap."""
-    with torch.enable_grad():
-        args = [tree_map(lambda t: t.detach().requires_grad_(True), a) for a in (x, y)]
-        gy = torch.autograd.grad(
-            problem.g(args[0], args[1], problem.data_g).sum(), tree_leaves(args[1]), create_graph=True
-        )
-        wrt = tree_leaves(args[argnum])
-        inner = tree_dot(tree_unflatten(y, gy), v)
-        grads = torch.autograd.grad(inner, wrt, allow_unused=True) if inner.requires_grad else [None] * len(wrt)
-    return tree_unflatten(
-        args[argnum], [torch.zeros_like(w) if g is None else g.detach() for g, w in zip(grads, wrt)]
-    )
-
-
 def _hvp_yy(problem: BilevelProblem, x: Tree, y: Tree, v: Tree) -> Tree:
-    """(d^2/dy^2 g_i) @ v_i for every node."""
+    """(d^2/dy^2 g_i) @ v_i for every node: the y-derivative of
+    <grad_y sum_i g_i(x_i, y_i), v> (nodes share no parameters, so node by
+    node this is the per-node product the reference takes with vmap).  A
+    traced graph (`repro_torch.core.oracle_graph`): within a loop over v
+    with x and y fixed, the primal forward runs once."""
     problem.record_oracle("hvp")
-    return _second_order(problem, x, y, v, 1)
+    return problem.graphs.second_order("g", problem._g, x, y, v, 1)
 
 
 def _jvp_xy(problem: BilevelProblem, x: Tree, y: Tree, v: Tree) -> Tree:
     """(d^2/dxdy g_i) @ v_i for every node: grad_x differentiated along the
-    y-direction v."""
+    y-direction v (traced: what does not reach x is not computed)."""
     problem.record_oracle("jvp")
-    return _second_order(problem, x, y, v, 0)
+    return problem.graphs.second_order("g", problem._g, x, y, v, 0)
 
 
 def _grad_f(problem: BilevelProblem, x: Tree, y: Tree, argnum: int, kind: str) -> Tree:
+    """grad of sum_i f_i with respect to x (argnum 0) or y (argnum 1), traced
+    like C2DFB's oracles (an x-partial f never reads costs nothing)."""
     problem.record_oracle(kind)
-    return grad_of_sum(problem.f, (x, y, problem.data_f), argnum)
+    return problem.graphs.grad("f", problem._f, x, y, argnum)
 
 
 def _ll_update(problem: BilevelProblem, x: Tree, eta_y: float):
@@ -136,17 +124,14 @@ def mdbo_init(x0: Tree, y0: Tree) -> MDBOState:
     return MDBOState(x=x0, y=y0, t=0)
 
 
-def mdbo_round(
-    state: MDBOState, problem: BilevelProblem, topo: Topology, cfg: MDBOConfig,
-    W: torch.Tensor | None = None, fabric=None, round_idx: int = 0,
+def _mdbo_round_core(
+    state: MDBOState, problem: BilevelProblem, cfg: MDBOConfig, W: torch.Tensor, ll_fn
 ) -> tuple[MDBOState, dict]:
-    """One MDBO round; ``W`` overrides the static mixing matrix.  ``fabric``
-    (a `repro_torch.net.fabric.NetworkFabric`) adds ``wire_bytes`` and
-    ``sim_seconds`` of `mdbo_round_phases`, priced as round ``round_idx``."""
-    W_override = W
-    W = _mixing_matrix(topo, state.x) if W is None else W
+    """Shared MDBO round body; ``ll_fn(y0, update)`` runs the LL gossip
+    loop (the synchronous `value_gossip_scan` or the async engine's
+    age-gated `delayed_value_scan`)."""
     x = state.x
-    y = value_gossip_scan(state.y, W, cfg.gamma, cfg.K, _ll_update(problem, x, cfg.eta_y))
+    y = ll_fn(state.y, _ll_update(problem, x, cfg.eta_y))
 
     # Hypergradient via truncated Neumann series:
     #   v approx [d2yy g]^{-1} grad_y f ;  v_{n+1} = v_n - eta*(H v_n) + eta*grad_y f
@@ -171,7 +156,21 @@ def mdbo_round(
         "x_consensus_err": consensus_error(x),
         "x_node_dist": node_consensus_dist(x),
     }
-    new_state = MDBOState(x=x, y=y, t=state.t + 1)
+    return MDBOState(x=x, y=y, t=state.t + 1), metrics
+
+
+def mdbo_round(
+    state: MDBOState, problem: BilevelProblem, topo: Topology, cfg: MDBOConfig,
+    W: torch.Tensor | None = None, fabric=None, round_idx: int = 0,
+) -> tuple[MDBOState, dict]:
+    """One MDBO round; ``W`` overrides the static mixing matrix.  ``fabric``
+    (a `repro_torch.net.fabric.NetworkFabric`) adds ``wire_bytes`` and
+    ``sim_seconds`` of `mdbo_round_phases`, priced as round ``round_idx``."""
+    W_override = W
+    W = _mixing_matrix(topo, state.x) if W is None else W
+    new_state, metrics = _mdbo_round_core(
+        state, problem, cfg, W, lambda y0, upd: value_gossip_scan(y0, W, cfg.gamma, cfg.K, upd)
+    )
     if fabric is not None:
         price_round(fabric, mdbo_round_phases(new_state, cfg, fabric.topo), W_override, round_idx, metrics)
     return new_state, metrics
@@ -231,17 +230,13 @@ def madsbo_init(problem: BilevelProblem, x0: Tree, y0: Tree) -> MADSBOState:
     return MADSBOState(x=x0, y=y0, v=v0, u=u0, t=0)
 
 
-def madsbo_round(
-    state: MADSBOState, problem: BilevelProblem, topo: Topology, cfg: MADSBOConfig,
-    W: torch.Tensor | None = None, fabric=None, round_idx: int = 0,
+def _madsbo_round_core(
+    state: MADSBOState, problem: BilevelProblem, cfg: MADSBOConfig, W: torch.Tensor, ll_fn, higp_fn
 ) -> tuple[MADSBOState, dict]:
-    """One MADSBO round; ``W`` overrides the static mixing matrix.
-    ``fabric`` adds ``wire_bytes`` and ``sim_seconds`` of
-    `madsbo_round_phases`, priced as round ``round_idx``."""
-    W_override = W
-    W = _mixing_matrix(topo, state.x) if W is None else W
+    """Shared MADSBO round body; ``ll_fn`` / ``higp_fn`` run the two gossip
+    loops (synchronous scans or the async engine's age-gated scans)."""
     x, u = state.x, state.u
-    y = value_gossip_scan(state.y, W, cfg.gamma, cfg.K, _ll_update(problem, x, cfg.eta_y))
+    y = ll_fn(state.y, _ll_update(problem, x, cfg.eta_y))
 
     # HIGP: min_v 0.5 v^T H v - v^T grad_y f  solved by Q gossip-GD steps
     grad_f_y = _grad_f(problem, x, y, 1, "ll_grad")  # the HIGP linear target
@@ -250,7 +245,7 @@ def madsbo_round(
         hv = _hvp_yy(problem, x, y, pre)
         return tree_map(lambda vn, hvn, b: vn - cfg.eta_v * (hvn - b), mixed, hv, grad_f_y)
 
-    v = value_gossip_scan(state.v, W, cfg.gamma, cfg.Q, higp_update)
+    v = higp_fn(state.v, higp_update)
 
     cross = _jvp_xy(problem, x, y, v)
     grad_f_x = _grad_f(problem, x, y, 0, "ul_grad")
@@ -266,7 +261,23 @@ def madsbo_round(
         "x_consensus_err": consensus_error(x),
         "x_node_dist": node_consensus_dist(x),
     }
-    new_state = MADSBOState(x=x, y=y, v=v, u=u, t=state.t + 1)
+    return MADSBOState(x=x, y=y, v=v, u=u, t=state.t + 1), metrics
+
+
+def madsbo_round(
+    state: MADSBOState, problem: BilevelProblem, topo: Topology, cfg: MADSBOConfig,
+    W: torch.Tensor | None = None, fabric=None, round_idx: int = 0,
+) -> tuple[MADSBOState, dict]:
+    """One MADSBO round; ``W`` overrides the static mixing matrix.
+    ``fabric`` adds ``wire_bytes`` and ``sim_seconds`` of
+    `madsbo_round_phases`, priced as round ``round_idx``."""
+    W_override = W
+    W = _mixing_matrix(topo, state.x) if W is None else W
+    new_state, metrics = _madsbo_round_core(
+        state, problem, cfg, W,
+        lambda y0, upd: value_gossip_scan(y0, W, cfg.gamma, cfg.K, upd),
+        lambda v0, upd: value_gossip_scan(v0, W, cfg.gamma, cfg.Q, upd),
+    )
     if fabric is not None:
         price_round(fabric, madsbo_round_phases(new_state, cfg, fabric.topo), W_override, round_idx, metrics)
     return new_state, metrics
@@ -283,6 +294,69 @@ def madsbo_round_phases(state: MADSBOState, cfg: MADSBOConfig, topo: Topology) -
     sizes += [(dy, f"higp{q}/v") for q in range(cfg.Q)]
     sizes += [(dx, "ul/x")]
     return _dense_phases(topo, sizes)
+
+
+# ---------------------------------------------------------------------------
+# async (staleness-gated) baseline rounds — driven by
+# repro_torch.async_gossip.engine.run_baseline_async
+# ---------------------------------------------------------------------------
+
+
+def madsbo_round_async(
+    state: MADSBOState,
+    problem: BilevelProblem,
+    topo: Topology,
+    cfg: MADSBOConfig,
+    ages_ll: torch.Tensor,
+    ages_higp: torch.Tensor,
+    depth: int,
+    delayed: bool = True,
+    damping: str = "none",
+    decay: float = 0.5,
+) -> tuple[MADSBOState, dict]:
+    """MADSBO round taking the AsyncScheduler's per-step edge ages ((K, m,
+    m) and (Q, m, m) integer tensors on the run's device): the LL and HIGP
+    gossip loops mix age-gated VERSIONS of the transmitted iterates (dense
+    value gossip, no reference points); everything else is the shared
+    `_madsbo_round_core`.  With ``delayed=False`` the synchronous scans
+    run, so zero-age rounds are bit-identical to ``madsbo_round``.
+    ``damping`` applies the staleness-adaptive mixing policy
+    (`repro_torch.async_gossip.mixing.DAMPING_POLICIES`)."""
+    from repro_torch.async_gossip.engine import delayed_value_scan
+
+    W = _mixing_matrix(topo, state.x)
+    if delayed:
+        ll_fn = lambda y0, upd: delayed_value_scan(y0, W, cfg.gamma, ages_ll, depth, upd, damping, decay)  # noqa: E731
+        higp_fn = lambda v0, upd: delayed_value_scan(v0, W, cfg.gamma, ages_higp, depth, upd, damping, decay)  # noqa: E731
+    else:
+        ll_fn = lambda y0, upd: value_gossip_scan(y0, W, cfg.gamma, cfg.K, upd)  # noqa: E731
+        higp_fn = lambda v0, upd: value_gossip_scan(v0, W, cfg.gamma, cfg.Q, upd)  # noqa: E731
+    return _madsbo_round_core(state, problem, cfg, W, ll_fn, higp_fn)
+
+
+def mdbo_round_async(
+    state: MDBOState,
+    problem: BilevelProblem,
+    topo: Topology,
+    cfg: MDBOConfig,
+    ages_ll: torch.Tensor,
+    depth: int,
+    delayed: bool = True,
+    damping: str = "none",
+    decay: float = 0.5,
+) -> tuple[MDBOState, dict]:
+    """MDBO round with a staleness-gated LL gossip loop; the Neumann series
+    is local compute (no gossip in this realization) and the UL update
+    stays at the barrier round boundary, both in the shared
+    `_mdbo_round_core`.  ``damping`` as in `madsbo_round_async`."""
+    from repro_torch.async_gossip.engine import delayed_value_scan
+
+    W = _mixing_matrix(topo, state.x)
+    if delayed:
+        ll_fn = lambda y0, upd: delayed_value_scan(y0, W, cfg.gamma, ages_ll, depth, upd, damping, decay)  # noqa: E731
+    else:
+        ll_fn = lambda y0, upd: value_gossip_scan(y0, W, cfg.gamma, cfg.K, upd)  # noqa: E731
+    return _mdbo_round_core(state, problem, cfg, W, ll_fn)
 
 
 # ---------------------------------------------------------------------------

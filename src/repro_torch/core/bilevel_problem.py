@@ -73,6 +73,15 @@ class BilevelProblem:
     def record_oracle(self, kind: str, n: int = 1) -> None:
         record_oracle(kind, n, self.oracle_calls)
 
+    def on_meta(self) -> "BilevelProblem":
+        """A copy whose data are meta tensors of the same shapes and dtypes,
+        with traces and an oracle counter of its own: what
+        `repro_torch.obs.compute.meta_cost` counts a round body on."""
+        meta = lambda t: torch.empty_like(t, device="meta")  # noqa: E731
+        return dataclasses.replace(
+            self, data_f=tree_map(meta, self.data_f), data_g=tree_map(meta, self.data_g), oracle_calls={}
+        )
+
     # ---------------- node-stacked oracles --------------------------------
     def grad_y_h(self, lam):
         """Returns grad_fn(y_stacked, x_stacked) for the y inner loop."""

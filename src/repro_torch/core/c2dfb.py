@@ -17,9 +17,11 @@ caller passes ``device="cpu"``).  Every entry point takes ``generator``,
 the random source of a stochastic compressor (a ``torch.Generator`` on the
 run's device, or a source object); draws follow the order written down in
 `repro_torch.core.compression`, and deterministic compressors ignore it.
-``run`` takes a topology ``schedule``, a network ``fabric`` (host numpy)
-and a telemetry handle ``obs``; the reference's async and transport
-arguments wait for later slices of the port.
+``run`` takes a topology ``schedule``, a network ``fabric`` (host numpy),
+a telemetry handle ``obs`` and the asynchronous engine's arguments
+(``async_mode`` and the rest, dispatched to
+`repro_torch.async_gossip.engine.run_async`); the transports and the async
+engine's compiled runtime wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -288,6 +290,17 @@ def _check_on(tree: Tree, device: torch.device, what: str) -> None:
             raise ValueError(f"{what} lies on {leaf.device}, the run on {device}")
 
 
+def run_device(problem: BilevelProblem, x0: Tree, y0: Tree, device) -> torch.device:
+    """The device a run goes on (`resolve_device`), once the problem's data
+    and x0/y0 are checked to lie there."""
+    device = resolve_device(device)
+    _check_on(x0, device, "x0")
+    _check_on(y0, device, "y0")
+    _check_on(problem.data_f, device, "the problem's data")
+    _check_on(problem.data_g, device, "the problem's data")
+    return device
+
+
 def run(
     problem: BilevelProblem,
     topo: Topology,
@@ -301,8 +314,13 @@ def run(
     fabric=None,
     obs=None,
     async_mode: str | None = None,
+    staleness_bound: int = 2,
+    version_rule: str = "common",
+    ledger=None,
     mixing_damping: str = "none",
+    damping_decay: float = 0.5,
     transport=None,
+    compiled: bool = False,
 ) -> tuple[C2DFBState, dict]:
     """Run T synchronous outer rounds; returns the final state and the
     metrics stacked over rounds (tensors with a leading axis of T, on the
@@ -328,24 +346,63 @@ def run(
     a round (fleet oracle calls; FLOPs; peak device memory after round 0)
     and m ``node`` records a round.
 
-    ``async_mode``, ``mixing_damping`` and ``transport`` are the
-    reference's asynchronous engine and transports, not ported yet: passing
-    them raises a ValueError."""
-    if async_mode is not None or mixing_damping != "none":
-        raise ValueError(
-            "async_mode and mixing_damping belong to the asynchronous gossip "
-            "engine, which the port does not have yet (a later slice ports it)"
-        )
+    ``async_mode`` switches to the event-driven asynchronous engine
+    (`repro_torch.async_gossip.engine.run_async`): "sync" (per-step global
+    barriers, the reference timing), "bounded" (nodes run ahead up to
+    ``staleness_bound`` inner steps) or "full" (never wait; mix whatever
+    reference points have arrived).  It requires ``fabric``; ``ledger`` (a
+    `repro_torch.async_gossip.StalenessLedger`) records per-edge staleness;
+    it composes with ``schedule``.  ``version_rule`` ("common",
+    "deterministic" or "acked") and ``mixing_damping`` ("none",
+    "inverse-age" or "exp-decay", with ``damping_decay``) are async choices
+    and raise without ``async_mode``.  ``compiled=True`` (the async
+    engine's compiled runtime) and ``transport`` (the transports) are not
+    ported yet and raise a ValueError."""
     if transport is not None:
+        if fabric is not None:
+            raise ValueError("pass fabric OR transport, not both — a transport owns its pricing fabric")
         raise ValueError(
             "transport= (simulated and device transports) is not ported yet: "
-            "a later slice ports the transports; pass fabric= to price a run"
+            "a later slice ports the transport engine; pass fabric= to price a run"
         )
-    device = resolve_device(device)
-    _check_on(x0, device, "x0")
-    _check_on(y0, device, "y0")
-    _check_on(problem.data_f, device, "the problem's data")
-    _check_on(problem.data_g, device, "the problem's data")
+    if async_mode is not None:
+        if fabric is None:
+            raise ValueError(
+                "async_mode requires a NetworkFabric: the asynchronous engine's "
+                "scheduler times every message on it"
+            )
+        from repro_torch.async_gossip.engine import COMPILED_NOT_PORTED, run_async
+
+        if compiled:
+            raise ValueError(COMPILED_NOT_PORTED)
+        return run_async(
+            problem, topo, cfg, x0, y0, T, generator, fabric,
+            policy=async_mode, bound=staleness_bound, version_rule=version_rule, ledger=ledger,
+            schedule=schedule, mixing_damping=mixing_damping, damping_decay=damping_decay,
+            obs=obs, device=device,
+        )
+    if compiled:
+        raise ValueError(
+            "compiled=True is the ASYNC runtime's two-phase scan (ROADMAP item "
+            "A8b, not ported yet); the synchronous path needs no compiled "
+            'runtime — drop compiled, or pass async_mode="sync"/"bounded"/'
+            '"full" (with a fabric) for the eager async engine'
+        )
+    if version_rule != "common":
+        raise ValueError(
+            "version_rule is an async protocol choice: the synchronous "
+            "path has no versions to agree on — pass async_mode="
+            '"sync"/"bounded"/"full" (with a fabric) to select '
+            "'deterministic' or 'acked' timelines"
+        )
+    if mixing_damping != "none":
+        raise ValueError(
+            "mixing_damping is a staleness policy: it needs per-edge ages, "
+            "which only the asynchronous engine produces — pass async_mode="
+            '"sync"/"bounded"/"full" (synchronous gossip has zero ages, so '
+            "damping would be a silent no-op)"
+        )
+    device = run_device(problem, x0, y0, device)
     obs = as_obs(obs)
     state = init_state(problem, cfg, x0, y0)
     if schedule is not None:

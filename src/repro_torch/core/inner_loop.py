@@ -139,12 +139,33 @@ def inner_loop(
     gamma: float,
     eta: float,
     K: int,
+    fabric=None,
+    round_idx: int = 0,
+    transport=None,
 ) -> tuple[InnerState, dict]:
     """Run K compressed-GT steps; returns final state + metrics.
 
     ``msg_bytes`` is the exact wire bytes of the loop's K x 2 messages
     (per-node broadcast accounting), counted on the device from the actual
-    payloads by `repro_torch.net.wire.scan_tree_bytes`."""
+    payloads by `repro_torch.net.wire.scan_tree_bytes`.
+
+    `repro_torch.async_gossip.engine.async_inner_loop` mirrors this loop
+    with a staleness-gated mix and a history carry; keep the two bodies and
+    their metrics keys in lockstep.
+
+    With a ``fabric`` (a `repro_torch.net.fabric.NetworkFabric`), metrics
+    additionally carry ``wire_bytes`` (int, codec-measured on this loop's
+    final residuals) and ``sim_seconds`` (the simulated wall clock of the K
+    barrier phases x 2 messages), priced as round ``round_idx``.
+    ``transport`` (a `repro_torch.transport.Transport`) prices the loop
+    through the transport's fabric-mirroring face instead.  The
+    measurement draws after the K steps' draws: the d message, then the s
+    message, where the reference draws them from ``split(key)`` of the
+    loop's own key."""
+    if transport is not None:
+        if fabric is not None:
+            raise ValueError("pass fabric OR transport, not both")
+        fabric = transport  # a Transport mirrors the fabric pricing API
     msg_bytes = None
     for _ in range(K):
         mix_d = mix_delta_dense(W, state.d_hat)
@@ -162,6 +183,11 @@ def inner_loop(
         "tracker_consensus_err": consensus_error(state.s),
         "msg_bytes": msg_bytes,
     }
+    if fabric is not None:
+        phases, labels = inner_round_phases(state, compressor, fabric.topo, generator, K)
+        rep = fabric.simulate_round(phases, round_idx, labels=labels)
+        metrics["wire_bytes"] = rep["wire_bytes"]
+        metrics["sim_seconds"] = rep["sim_seconds"]
     return state, metrics
 
 

@@ -8,8 +8,10 @@ The port runs eagerly, so it does the same to its oracles here.
 Every C2DFB oracle is the gradient of a node-stacked loss L(x, v), summed
 over the nodes, with respect to x (the hypergradient's x-partials) or to v
 (the inner loops' y and z).  `OracleGraphs.grad` traces it once per (kind,
-argument, shapes, dtypes, device) with ``make_fx(torch.func.grad(...))``
-and then:
+argument, shapes, dtypes, device) with ``make_fx(torch.func.grad(...))``;
+`OracleGraphs.second_order` traces the baselines' Hessian-vector and
+cross products (double backward) the same way, with (x, y) as the
+invariant inputs.  Then:
 
 * **Removes dead code.**  The backward's seed ``ones_like(loss)`` reads the
   loss, so the whole forward stays live even where the gradient never
@@ -39,7 +41,7 @@ import torch
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils._python_dispatch import _disable_current_modes
 
-from repro_torch.core.types import Tree, tree_leaves, tree_unflatten
+from repro_torch.core.types import Tree, tree_dot, tree_leaves, tree_unflatten
 
 _ATEN = torch.ops.aten
 
@@ -181,29 +183,60 @@ class OracleGraphs:
         """The gradient of ``loss(x, v).sum()`` with respect to x (argnum 0)
         or v (argnum 1).  ``kind`` names the loss: one loss a kind for the
         life of the problem."""
-        wrt = (x, v)[argnum]
-        xl, vl = tree_leaves(x), tree_leaves(v)
-        key = (kind, argnum, _signature(x), _signature(v))
-        trace = self._traces.get(key)
-        if trace is None:
-            trace = self._traces[key] = self._trace(loss, x, v, argnum)
-        tokens = tuple((id(t), t._version) for t in xl)
-        if tokens != self._tokens:  # another x: its invariant values are not computed yet
-            self._memo.clear()
-            self._tokens, self._x = tokens, xl
-        outs = trace.module(*vl, *(self._value(e) for e in trace.frontier))
-        return tree_unflatten(wrt, outs)
-
-    def _trace(self, loss, x: Tree, v: Tree, argnum: int) -> _Trace:
         nx = len(tree_leaves(x))
 
         def flat(*leaves):
             args = (tree_unflatten(x, leaves[:nx]), tree_unflatten(v, leaves[nx:]))
             return tree_leaves(torch.func.grad(lambda a, b: loss(a, b).sum(), argnums=argnum)(*args))
 
+        outs = self._call((kind, argnum), flat, tree_leaves(x), tree_leaves(v))
+        return tree_unflatten((x, v)[argnum], outs)
+
+    def second_order(
+        self, kind: Any, loss: Callable[[Tree, Tree], torch.Tensor], x: Tree, y: Tree, v: Tree, argnum: int
+    ) -> Tree:
+        """The derivative of <grad_y loss(x, y).sum(), v> with respect to x
+        (argnum 0: the cross product (d^2/dxdy) @ v) or y (argnum 1: the
+        Hessian-vector product (d^2/dy^2) @ v), by double backward.  (x, y)
+        are the invariant inputs and v the variant one: within a loop that
+        keeps x and y (a Neumann series, a HIGP solve) the primal forward
+        runs once, and a derivative that never reads the primal gradient
+        (the seed rewrite) runs none of it, as XLA leaves the reference's
+        forward-over-reverse products."""
+        nx, ny = len(tree_leaves(x)), len(tree_leaves(y))
+
+        def flat(*leaves):
+            xs = tree_unflatten(x, leaves[:nx])
+            ys = tree_unflatten(y, leaves[nx:nx + ny])
+            vs = tree_unflatten(v, leaves[nx + ny:])
+
+            def inner(a, b):
+                gy = torch.func.grad(lambda bb: loss(a, bb).sum())(b)
+                return tree_dot(gy, vs)
+
+            return tree_leaves(torch.func.grad(inner, argnums=argnum)(xs, ys))
+
+        outs = self._call(("second_order", kind, argnum), flat, tree_leaves(x) + tree_leaves(y), tree_leaves(v))
+        return tree_unflatten((x, y)[argnum], outs)
+
+    def _call(self, kind: Any, flat: Callable, inv: list, var: list) -> list:
+        """Run the traced ``flat(*inv, *var)`` (traced on first use for these
+        shapes), its invariant nodes from the memo while ``inv`` stays the
+        same tensors."""
+        key = (kind, tuple(_signature(t) for t in inv), tuple(_signature(t) for t in var))
+        trace = self._traces.get(key)
+        if trace is None:
+            trace = self._traces[key] = self._trace(flat, inv, var)
+        tokens = tuple((id(t), t._version) for t in inv)
+        if tokens != self._tokens:  # other invariant inputs: their values are not computed yet
+            self._memo.clear()
+            self._tokens, self._x = tokens, inv
+        return trace.module(*var, *(self._value(e) for e in trace.frontier))
+
+    def _trace(self, flat: Callable, inv: list, var: list) -> _Trace:
         # traced on the real inputs, outside any counting mode around the call
         with _disable_current_modes():
-            gm = make_fx(flat)(*tree_leaves(x), *tree_leaves(v))
+            gm = make_fx(flat)(*inv, *var)
         _seed_without_loss(gm)
         self.traces += 1
-        return _Trace(gm, nx, self)
+        return _Trace(gm, len(inv), self)

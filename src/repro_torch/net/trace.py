@@ -40,7 +40,7 @@ class StepEvent:
     """One node's local compute slice in an ASYNC (non-barrier) execution:
     node ``node`` ran step ``step`` of loop ``loop`` ("y", "z", "outer")
     between its own gate time and its compute finish.  Emitted by the
-    asynchronous scheduler (a later slice of the port); in the Chrome
+    asynchronous scheduler (`repro_torch.async_gossip.scheduler`); in the Chrome
     export each node gets its own lane, so staleness shows up visually as
     lanes drifting apart."""
 

@@ -1,9 +1,9 @@
 """repro_torch.obs — the telemetry spine (``repro.obs``'s counterpart).
 
-One instrumentation layer the port's runs feed (so far the synchronous
-`repro_torch.core.c2dfb.run`; the async engine and the transports come in
-later slices), with the reference's record schema, so the two packages'
-JSONL runs compare field for field:
+One instrumentation layer the port's runs feed (the synchronous
+`repro_torch.core.c2dfb.run` and the eager async engine; the transports
+come in a later slice), with the reference's record schema, so the two
+packages' JSONL runs compare field for field:
 
 * ``sink``     — `MetricsSink` protocol + `MemorySink` / `JsonlSink`
   (one streamed JSON line per record) / `SocketSink` (the same lines

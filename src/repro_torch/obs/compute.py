@@ -24,7 +24,10 @@ Three layers, as in the reference:
    code and loop-invariant work; the port's oracles do the same to their
    traced gradients (`repro_torch.core.oracle_graph`), so both fields
    equal the reference's.  ``collective_bytes`` and ``compile_seconds``
-   have no counterpart here and stay None.
+   have no counterpart here and stay None.  Where the reference's round
+   body is a ``lax.cond`` (the async engine's zero-age fast path), XLA
+   adds up both branches; the port's round 0 runs one, and `meta_cost`
+   counts the other on the meta device, where nothing executes.
 
 3. **Device memory.**  `memory_peak_bytes` reads the CUDA allocator's
    high-water mark on the card and returns None on the CPU, as the
@@ -202,6 +205,11 @@ class RoundCost:
     collective_bytes: float | None = None
     compile_seconds: float | None = None
 
+    def plus(self, other: "RoundCost") -> "RoundCost":
+        """The cost of a body holding both bodies' work: how XLA counts a
+        ``lax.cond``, whose two branches it adds up."""
+        return RoundCost(flops=self.flops + other.flops, hbm_bytes=self.hbm_bytes + other.hbm_bytes)
+
 
 def reset_cost_cache() -> None:
     """The reference's memo reset.  The port keeps no memo (every run
@@ -231,6 +239,55 @@ def round_cost(
     if expected_oracles is not None:
         check_structure(label, expected_oracles, oracle_site_delta(before))
     return out, RoundCost(flops=float(counter.get_total_flops()), hbm_bytes=float(dots.bytes))
+
+
+class MetaSource:
+    """The random source of a count on the meta device: draws of the
+    asked shape that hold no values.  A count never advances a run's own
+    source."""
+
+    def uniform(self, shape, device, dtype=torch.float32) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def choice(self, n: int, k: int, device) -> torch.Tensor:
+        return torch.empty((k,), dtype=torch.int64, device="meta")
+
+
+def to_meta(obj):
+    """``obj`` with every tensor replaced by a meta tensor of its shape and
+    dtype (through dicts, lists, tuples and named tuples); a problem (an
+    object with ``on_meta``) becomes its meta copy; anything else is kept."""
+    if isinstance(obj, torch.Tensor):
+        return torch.empty_like(obj, device="meta")
+    if hasattr(obj, "on_meta"):
+        return obj.on_meta()
+    if isinstance(obj, dict):
+        return {k: to_meta(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_meta(v) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_meta(v) for v in obj)
+    return obj
+
+
+def meta_cost(fn, *args) -> RoundCost:
+    """The `RoundCost` of ``fn(*args)`` counted on the meta device: every
+    tensor argument (and a problem's data) becomes a meta tensor of its
+    shape and dtype, so the body computes shapes only and nothing runs on
+    any device; the compressors take their kernels' plain versions there
+    (`repro_torch.kernels.ops`).  This counts the branch of a round body
+    that its round 0 did not take.  The module-wide oracle counters are
+    left as they were."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    saved = oracle_trace_counts()
+    try:
+        with FlopCounterMode(display=False) as counter, DotBytes() as dots:
+            fn(*to_meta(args))
+    finally:
+        _ORACLE_SITES.clear()
+        _ORACLE_SITES.update(saved)
+    return RoundCost(flops=float(counter.get_total_flops()), hbm_bytes=float(dots.bytes))
 
 
 def memory_peak_bytes(device=None) -> int | None:

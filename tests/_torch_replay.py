@@ -73,6 +73,31 @@ def run_leaf_keys(key, T: int, K: int, n_leaves: int):
         yield from round_leaf_keys(kt, K, n_leaves)
 
 
+def inner_loop_fabric_leaf_keys(key, K: int, n_leaves: int):
+    """``inner_loop(fabric=)``: the K steps, then the metering of the final
+    residuals on ``split(key)`` of the loop's own key (the d message, then
+    the s message)."""
+    yield from inner_loop_leaf_keys(key, K, n_leaves)
+    kd, ks = jax.random.split(key)
+    yield from message_leaf_keys(kd, n_leaves)
+    yield from message_leaf_keys(ks, n_leaves)
+
+
+def async_run_leaf_keys(key, T: int, K: int, n_leaves: int, measured: bool = True):
+    """``run_async``: T rounds on ``split(key, T)``.  With measured payloads
+    each round first meters its packet sizes on ``split(fold_in(k_t,
+    0xB17E))`` (the y loop's d and s messages, then the z loop's), then
+    makes its own draws; with analytic payloads only the rounds draw (the
+    analytic probe has a source of its own)."""
+    for kt in jax.random.split(key, T):
+        if measured:
+            for kl in jax.random.split(jax.random.fold_in(kt, 0xB17E)):
+                kd, ks = jax.random.split(kl)
+                yield from message_leaf_keys(kd, n_leaves)
+                yield from message_leaf_keys(ks, n_leaves)
+        yield from round_leaf_keys(kt, K, n_leaves)
+
+
 def wire_leaf_keys(key, n_leaves: int):
     """``round_wire_bytes_measured``: per loop (y, z) one d and one s message."""
     for k in jax.random.split(key):
