@@ -998,6 +998,49 @@ def _async_run(tag: str, fn, T_: int):
     return out, counts
 
 
+class RoundParts:
+    """Times each round's parts inside a counted async C2DFB run, each
+    between device synchronizations: the metering (`inner_message_bytes`,
+    the y and the z loop's), the scheduler's `drive_round` and the round
+    body (`c2dfb_masked_round`).  Used as a context manager around the run;
+    ``parts`` then holds a list of seconds a round for each part."""
+
+    def __enter__(self):
+        from repro_torch.async_gossip import engine as E
+
+        self.E = E
+        self.saved = (E.inner_message_bytes, E.AsyncScheduler.drive_round, E.c2dfb_masked_round)
+        self.parts = {"metering": [], "scheduler": [], "body": []}
+        E.inner_message_bytes = self._timed("metering", self.saved[0])
+        E.AsyncScheduler.drive_round = self._timed("scheduler", self.saved[1])
+        E.c2dfb_masked_round = self._timed("body", self.saved[2])
+        return self
+
+    def _timed(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.parts[name].append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    def __exit__(self, *exc):
+        E = self.E
+        E.inner_message_bytes, E.AsyncScheduler.drive_round, E.c2dfb_masked_round = self.saved
+        met = self.parts["metering"]
+        self.parts["metering"] = [a + b for a, b in zip(met[::2], met[1::2])]  # y and z loop, a round
+        return False
+
+    def report(self, tag: str, wall: float) -> None:
+        other = wall - sum(sum(v) for v in self.parts.values())
+        spread = {k: max(v) - min(v) for k, v in self.parts.items() if v}
+        print(f"[async parts] {tag}, inside the counted run (s a round): {self.parts}; spread (max - min) "
+              f"{spread}; host bookkeeping for the run {other!r} s")
+
+
 def _finite(tag: str, state, mets) -> None:
     from repro_torch.core.types import tree_leaves
 
@@ -1081,7 +1124,12 @@ def phase_async(dev, bundle) -> dict:
     * kernel_quant, bounded 1, analytic payloads, 2 rounds: B4 launches
       4*K a round and once for the analytic probe;
     * async MDBO and MADSBO, bounded 1, 2 rounds each (Neumann and HIGP
-      steps of 1e-3: the defaults diverge at this width under staleness).
+      steps of 1e-3; at the default steps the reference's own async runs
+      of this task blow up from p = 500 on; `phase_small_async_baselines` runs
+      the default steps card against host).
+
+    The sync, bounded-1 and full runs time each round's metering, scheduler
+    and round body inside the counted run (`RoundParts`).
 
     Returns the async path's launch counts of B1, B2 and B4."""
     import tempfile
@@ -1104,9 +1152,13 @@ def phase_async(dev, bundle) -> dict:
                              lambda: run(problem, topo, cfg, x0, y0, T=T, device=dev), T)
     for policy, bound in (("sync", 0), ("bounded", 1), ("full", 0)):
         tag = f"{policy}{bound if policy == 'bounded' else ''}"
-        (state, mets), counts = _async_run(tag, lambda: run(
-            problem, topo, cfg, x0, y0, T=T, device=dev, fabric=make_fabric(topo, **GEO),
-            async_mode=policy, staleness_bound=bound), T)
+        with RoundParts() as parts:
+            t0 = time.perf_counter()
+            (state, mets), counts = _async_run(tag, lambda: run(
+                problem, topo, cfg, x0, y0, T=T, device=dev, fabric=make_fabric(topo, **GEO),
+                async_mode=policy, staleness_bound=bound), T)
+            wall = time.perf_counter() - t0
+        parts.report(tag, wall)
         _finite(tag, state, mets)
         smax = [int(a) for a in mets["staleness_max"]]
         print(f"[async] {tag}: staleness_max {smax}, staleness_hist {mets['staleness_hist'].tolist()}, "
@@ -1177,9 +1229,11 @@ def phase_async(dev, bundle) -> dict:
     launches["kernel_quant"] = counts
     del state, mets
 
-    # at this width the default Neumann and HIGP steps (0.1) diverge within
-    # the first round once the lower level mixes stale versions (so does the
-    # reference's engine on the CPU): steps of 1e-3 keep both finite
+    # at the default Neumann and HIGP steps (0.1) the reference's own async
+    # MDBO and MADSBO runs of this task (m = 10, n = 2,000, c = 20, ring, geo
+    # fabric, bounded 1) grow without bound from p = 500 on and reach NaN
+    # within 2 rounds from p = 1,000 on, the port's with them (ROADMAP §C):
+    # steps of 1e-3 keep both finite at the paper's width
     for alg, bcfg in (("mdbo", B.MDBOConfig(neumann_eta=1e-3)), ("madsbo", B.MADSBOConfig(eta_v=1e-3))):
         (state, mets), counts = _async_run(f"{alg} bounded1", lambda: run_baseline_async(
             alg, problem, topo, bcfg, x0, y0, BASELINE_ROUNDS, make_fabric(topo, **GEO), policy="bounded",
@@ -1319,6 +1373,47 @@ def phase_small_async(dev, topo, cfg):
     print(f"[small] async bounded 1 on er(10, 0.4) with the geo fabric: card and host agree; wire_bytes "
           f"{mg['wire_bytes'].tolist()}, staleness_max {mg['staleness_max'].tolist()}, (compute_flops, hbm_bytes) "
           f"{costs[dev][0]}")
+    phase_small_async_baselines(dev, topo)
+
+
+def phase_small_async_baselines(dev, topo):
+    """Async MDBO and MADSBO, bounded 1, at their default steps on the
+    Erdős–Rényi graph with the geo fabric and obs, 2 rounds on the card and
+    on the host: ages, wire bytes, simulated seconds and the round records'
+    compute_flops and hbm_bytes equal; the states and the hypergradient
+    norms within TOL."""
+    from repro_torch.async_gossip import run_baseline_async
+    from repro_torch.core import baselines as B
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.data.bilevel_tasks import coefficient_tuning_task
+    from repro_torch.net import make_fabric
+    from repro_torch.obs import MemorySink, Obs
+
+    for alg, bcfg in (("mdbo", B.MDBOConfig()), ("madsbo", B.MADSBOConfig())):
+        out, costs = {}, {}
+        for d in ("cpu", dev):
+            b = coefficient_tuning_task(m=10, n=400, p=64, c=4, seed=0, device=d)
+            sink = MemorySink()
+            out[d] = run_baseline_async(alg, b.problem, topo, bcfg, b.x0, b.y0, BASELINE_ROUNDS,
+                                        make_fabric(topo, **GEO), policy="bounded", bound=1, obs=Obs(sink=sink),
+                                        device=d)
+            costs[d] = [(r["compute_flops"], r["hbm_bytes"]) for r in sink.rows(kind="round")]
+        (sc, mc), (sg, mg) = out["cpu"], out[dev]
+        _finite(f"small async {alg}", sg, mg)
+        for la, lb in zip(tree_leaves(sc.x) + tree_leaves(sc.y), tree_leaves(sg.x) + tree_leaves(sg.y)):
+            check(torch.allclose(lb.cpu(), la, **TOL), f"small async {alg}: the card's state differs from the host's")
+        check(torch.allclose(mg["hypergrad_norm"].cpu(), mc["hypergrad_norm"], **TOL),
+              f"small async {alg}: hypergrad_norm differs between card and host")
+        for k in ("sim_seconds", "wire_bytes"):
+            check(np.array_equal(mc[k], mg[k]), f"small async {alg}: {k} differs between card and host")
+        check(all(np.array_equal(a.ages, b.ages) for a, b in zip(mc["ledger"].loops, mg["ledger"].loops)),
+              f"small async {alg}: ages differ between card and host")
+        check(mg["ledger"].max_age() == 1, f"small async {alg}: max age {mg['ledger'].max_age()}, want 1")
+        check(costs["cpu"] == costs[dev], f"small async {alg}: (compute_flops, hbm_bytes) {costs[dev][0]} on the "
+              f"card, {costs['cpu'][0]} on the host")
+        print(f"[small] async {alg} bounded 1 at its default steps on er(10, 0.4): card and host agree; "
+              f"hypergrad_norm {mg['hypergrad_norm'].tolist()}, wire_bytes {mg['wire_bytes'].tolist()}, "
+              f"(compute_flops, hbm_bytes) {costs[dev][0]}")
 
 
 def main() -> int:

@@ -51,6 +51,7 @@ from repro_torch.async_gossip.ledger import (
     staleness_stats,
 )
 from repro_torch.async_gossip.mixing import (
+    DelayedMixer,
     init_history,
     mix_delta_delayed,
     push_history,
@@ -68,17 +69,12 @@ from repro_torch.core.c2dfb import (
     run_device,
 )
 from repro_torch.core.compression import make_compressor
-from repro_torch.core.inner_loop import (
-    InnerState,
-    inner_apply,
-    inner_loop,
-    inner_message_bytes,
-)
+from repro_torch.core.inner_loop import InnerState, inner_loop, inner_message_bytes
 from repro_torch.core.topology import Topology
-from repro_torch.core.types import Tree, consensus_error, tree_leaves, tree_map, tree_sq_norm
+from repro_torch.core.types import Tree, tree_leaves, tree_map
 from repro_torch.net.dynamic import active_edge_masks, schedule_version_lags, validate_schedule_stack
 from repro_torch.net.fabric import edge_list
-from repro_torch.net.wire import codec_for, measure_tree_bytes, scan_tree_bytes
+from repro_torch.net.wire import codec_for, measure_tree_bytes
 from repro_torch.obs.compute import (
     MetaSource,
     c2dfb_oracle_calls,
@@ -223,39 +219,21 @@ def async_inner_loop(
     version.  With ``return_hist`` the post-loop histories come back as a
     third result.
 
-    The delayed branch mirrors `inner_loop`'s body with the history carry
-    added (same `inner_apply` call, same byte metering, same metrics keys).
+    The delayed branch is `inner_loop` itself with a `DelayedMixer` on
+    the histories.
     """
     if not delayed:
         if return_hist:
             raise ValueError("return_hist requires the delayed branch")
         return inner_loop(state, generator, grad_fn, W, compressor, gamma, eta, K)
-
-    if hist0 is None:
-        hist_d = init_history(state.d_hat, depth)
-        hist_s = init_history(state.s_hat, depth)
-    else:
-        hist_d, hist_s = hist0
-
-    msg_bytes = None
-    for k in range(K):
-        mix_d = mix_delta_delayed(W, hist_d, ages[k], damping, decay)
-        mix_s = mix_delta_delayed(W, hist_s, ages[k], damping, decay)
-        state, (q_d, q_s) = inner_apply(state, generator, grad_fn, compressor, gamma, eta, mix_d, mix_s)
-        hist_d = push_history(hist_d, state.d_hat)
-        hist_s = push_history(hist_s, state.s_hat)
-        nbytes = scan_tree_bytes(compressor, q_d) + scan_tree_bytes(compressor, q_s)
-        msg_bytes = nbytes if msg_bytes is None else msg_bytes + nbytes
-    if msg_bytes is None:
-        msg_bytes = torch.zeros((), dtype=torch.int64, device=tree_leaves(state.d)[0].device)
-    metrics = {
-        "consensus_err": consensus_error(state.d),
-        "compress_err": tree_sq_norm(tree_map(torch.sub, state.d, state.d_hat)),
-        "tracker_consensus_err": consensus_error(state.s),
-        "msg_bytes": msg_bytes,
-    }
+    # fresh histories go straight to the mixer, unbound here, so each push
+    # frees the version it replaces
+    hists = hist0 or (init_history(state.d_hat, depth), init_history(state.s_hat, depth))
+    mixer = DelayedMixer(W, *hists, ages, damping, decay)
+    del hists
+    state, metrics = inner_loop(state, generator, grad_fn, W, compressor, gamma, eta, K, mixer=mixer)
     if return_hist:
-        return state, metrics, (hist_d, hist_s)
+        return state, metrics, mixer.histories(state)
     return state, metrics
 
 

@@ -182,3 +182,39 @@ def mix_delta_delayed(
         return out.reshape(h.shape[1:]).to(h.dtype)
 
     return tree_map(leaf, hist)
+
+
+class DelayedMixer:
+    """`repro_torch.core.inner_loop.inner_loop`'s mixer under staleness:
+    step k mixes the d and s reference HISTORIES gated by ``ages[k]``
+    (`mix_delta_delayed`).  Each call first pushes the references the
+    previous step produced, so slot 0 always holds the current version;
+    `histories` pushes the loop's last references and returns the
+    ``(hist_d, hist_s)`` pair that a cross-round carry needs."""
+
+    def __init__(self, W, hist_d: Tree, hist_s: Tree, ages: torch.Tensor, damping: str = "none",
+                 decay: float = 0.5):
+        self.W, self.ages, self.damping, self.decay = W, ages, damping, decay
+        self.hist_d, self.hist_s = hist_d, hist_s
+        self._step = 0
+        self._pending = False  # a step ran whose references are not pushed yet
+
+    def _push(self, state) -> None:
+        if self._pending:
+            self.hist_d = push_history(self.hist_d, state.d_hat)
+            self.hist_s = push_history(self.hist_s, state.s_hat)
+            self._pending = False
+
+    def __call__(self, state) -> tuple[Tree, Tree]:
+        self._push(state)
+        ages = self.ages[self._step]
+        self._step += 1
+        self._pending = True
+        return (
+            mix_delta_delayed(self.W, self.hist_d, ages, self.damping, self.decay),
+            mix_delta_delayed(self.W, self.hist_s, ages, self.damping, self.decay),
+        )
+
+    def histories(self, state) -> tuple[Tree, Tree]:
+        self._push(state)
+        return self.hist_d, self.hist_s

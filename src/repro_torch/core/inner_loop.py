@@ -142,6 +142,7 @@ def inner_loop(
     fabric=None,
     round_idx: int = 0,
     transport=None,
+    mixer: Callable[[InnerState], tuple[Tree, Tree]] | None = None,
 ) -> tuple[InnerState, dict]:
     """Run K compressed-GT steps; returns final state + metrics.
 
@@ -149,9 +150,11 @@ def inner_loop(
     (per-node broadcast accounting), counted on the device from the actual
     payloads by `repro_torch.net.wire.scan_tree_bytes`.
 
-    `repro_torch.async_gossip.engine.async_inner_loop` mirrors this loop
-    with a staleness-gated mix and a history carry; keep the two bodies and
-    their metrics keys in lockstep.
+    ``mixer(state)`` returns each step's mixing deltas ``(mix_d, mix_s)``
+    from the step's input state; by default the dense mix on the current
+    references with ``W``.  The async engine passes
+    `repro_torch.async_gossip.mixing.DelayedMixer`, which mixes age-gated
+    reference histories and advances them itself.
 
     With a ``fabric`` (a `repro_torch.net.fabric.NetworkFabric`), metrics
     additionally carry ``wire_bytes`` (int, codec-measured on this loop's
@@ -166,13 +169,12 @@ def inner_loop(
         if fabric is not None:
             raise ValueError("pass fabric OR transport, not both")
         fabric = transport  # a Transport mirrors the fabric pricing API
+    if mixer is None:
+        mixer = lambda st: (mix_delta_dense(W, st.d_hat), mix_delta_dense(W, st.s_hat))  # noqa: E731
     msg_bytes = None
     for _ in range(K):
-        mix_d = mix_delta_dense(W, state.d_hat)
-        mix_s = mix_delta_dense(W, state.s_hat)
-        state, (q_d, q_s) = inner_apply(
-            state, generator, grad_fn, compressor, gamma, eta, mix_d, mix_s
-        )
+        # the mixes are the call's temporaries: freed before the next step's
+        state, (q_d, q_s) = inner_apply(state, generator, grad_fn, compressor, gamma, eta, *mixer(state))
         nbytes = scan_tree_bytes(compressor, q_d) + scan_tree_bytes(compressor, q_s)
         msg_bytes = nbytes if msg_bytes is None else msg_bytes + nbytes
     if msg_bytes is None:
