@@ -57,7 +57,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    an Erdos-Renyi graph with a dropout schedule, a fabric and obs, whose
    simulated seconds, wire bytes, compute_flops and hbm_bytes must be equal
    on the card and the host; and an async bounded-1 run on that graph,
-   whose ages, bytes, seconds and compute counts must be equal.
+   whose ages, bytes, seconds and compute counts must be equal;
+10. the compiled runtime (a scheduler replay, then each branch's round body
+   captured once in a CUDA graph and replayed): at the width of phase 8,
+   every policy, the composed run, kernel_quant and async MDBO and MADSBO
+   bit for bit against the eager engine with analytic payloads, at most
+   one capture a branch, B1 and B4 launched 4*K*T times by the profiler's
+   count, peak memory and seconds a round (eager measured, eager analytic,
+   compiled cold and warm); at the compiled-axis config of the reference's
+   async benchmark, T = 50: eager against compiled cold and warm, captures
+   equal at T = 25 and 50, the replay loop under
+   set_sync_debug_mode("error") and its device idle share; and a compiled
+   run on er(10, 0.4), card against host.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -65,6 +76,8 @@ limit, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import re
 import shutil
@@ -128,24 +141,39 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_window(fn, iters: int):
-    """Run ``fn`` ``iters`` times under torch.profiler; returns the device
-    activity it saw (kernels, memsets, copies), the host wall seconds and
-    the host operators' names with their counts."""
+def device_window(fn, iters: int, cpu: bool = True):
+    """Run ``fn`` ``iters`` times under torch.profiler (host operators too
+    unless ``cpu`` is False); returns the device activity it saw (kernels,
+    memsets, copies), the host wall seconds of the calls (between device
+    synchronizations inside the profiled window, so the profiler's own
+    start and stop are left out) and the host operators' names with their
+    counts."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     ops = collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CPU)
     return events, wall, ops
+
+
+def busy_us(events) -> float:
+    """Microseconds the device was busy: the union of the activities'
+    intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3):
@@ -185,7 +213,7 @@ def copy_ms(nbytes: int) -> float:
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
 def nvidia_smi() -> str:
@@ -669,12 +697,7 @@ def profile_round(problem, topo, cfg, state, generator, tag) -> None:
     torch.cuda.synchronize()
     print(f"{tag} steady-state round wall {time.perf_counter() - t0!r} s")
     events, wall, ops = device_window(lambda: c2dfb_round(state, generator, problem, topo, cfg), 1)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:  # union of device intervals, in microseconds
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = busy_us(events)
     by_name: dict[str, list] = {}
     for e in events:
         acc = by_name.setdefault(e.name, [0.0, 0])
@@ -979,10 +1002,15 @@ def phase_baselines_fabric(dev, bundle) -> None:
 GEO = dict(profile="geo", straggler="lognormal", compute_s=0.05, sigma=0.8, seed=0)
 
 
+#: seconds a round of each counted async run of phase 8, by its tag
+ASYNC_WALLS: dict[str, float] = {}
+
+
 def _async_run(tag: str, fn, T_: int):
     """Run ``fn()`` with the launch counts set to 0 just before and read
     just after; prints its wall time, per-round wall time and peak device
-    memory.  Returns (result, launch counts)."""
+    memory (the seconds a round also go to ASYNC_WALLS).  Returns (result,
+    launch counts)."""
     from repro_torch.kernels import _build
 
     torch.cuda.synchronize()
@@ -993,6 +1021,7 @@ def _async_run(tag: str, fn, T_: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _build.launch_counts()
+    ASYNC_WALLS[tag] = wall / T_
     print(f"[async] {tag}: {T_} rounds in {wall!r} s ({wall / T_!r} s a round), launches {counts}, "
           f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
     return out, counts
@@ -1089,12 +1118,7 @@ def async_breakdown(problem, topo, cfg, state, ledger) -> None:
     print(f"[async breakdown] bounded 1, alone: metering {metering!r} s, scheduler {scheduling!r} s, delayed round "
           f"body {walls['delayed']!r} s, sync round body {walls['sync']!r} s")
     events, wall, _ = device_window(delayed, 1)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:  # union of device intervals, in microseconds
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = busy_us(events)
     by_name: dict[str, list] = {}
     for e in events:
         acc = by_name.setdefault(e.name, [0.0, 0])
@@ -1248,6 +1272,323 @@ def phase_async(dev, bundle) -> dict:
         block_topk=launches["bounded1"]["block_topk"], pack_sparse_blocks=launches["bounded1"]["pack_sparse_blocks"],
         quantize=launches["kernel_quant"]["quantize"],
     )
+
+
+# ---------------------------------------------------------------- phase 10: the compiled runtime
+
+
+def _same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (a NaN equals a NaN of the same bits)."""
+    if torch.is_tensor(a):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        return torch.equal(bits(a), bits(b)) if a.is_floating_point() else torch.equal(a, b)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _same_run(tag: str, got, want) -> None:
+    """A compiled run against its eager twin: state, every metric and the
+    ledger (ages, loop seconds, the consensus curve) bit for bit."""
+    from repro_torch.async_gossip.compiled import _tensors
+
+    (sg, mg), (sw, mw) = got, want
+    check(all(_same_bits(a, b) for a, b in zip(_tensors(sg), _tensors(sw))) and sg.t == sw.t,
+          f"{tag}: the compiled state differs from the eager run's")
+    check(set(mg) == set(mw), f"{tag}: metric keys {sorted(mg)} against {sorted(mw)}")
+    for k in mw:
+        if k != "ledger":
+            check(_same_bits(mg[k], mw[k]), f"{tag}: metric {k} differs from the eager run's")
+    lg, lw = mg["ledger"], mw["ledger"]
+    check(len(lg.loops) == len(lw.loops) and all(
+        np.array_equal(a.ages, b.ages) and (a.t_start, a.t_end) == (b.t_start, b.t_end)
+        for a, b in zip(lg.loops, lw.loops)), f"{tag}: the ledger's loops differ")
+    check(all(_same_bits(a, b) for a, b in zip(lg.curve(), lw.curve())), f"{tag}: the ledger's curve differs")
+
+
+def kernel_counts(fn):
+    """``fn()`` under torch.profiler; returns its result, the launches of B1
+    (block top-k) and B4 (the quantizer) counted from the kernel records'
+    names, which CUPTI reports for the kernels of a replayed graph too, and
+    the count of all device activity records."""
+    out = []
+    events, _, _ = device_window(lambda: out.append(fn()), 1, cpu=False)
+    names = [e.name for e in events]
+    return out[0], {"block_topk": sum("topk_kernel" in n for n in names),
+                    "quantize": sum("quant_kernel" in n for n in names)}, len(events)
+
+
+def _timed_run(fn):
+    """(result, wall seconds, peak device memory above what was allocated
+    before the call) of ``fn()``: the run's own high-water mark, whatever
+    earlier results are still held."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - held
+
+
+@contextlib.contextmanager
+def replay_loop(sync_debug: bool = False, profiled: bool = False):
+    """Wrap the compiled runtime's phase 2 (`RoundGraphs.run`: eager
+    warm-ups, captures and replays) for the runs inside the block: under
+    ``torch.cuda.set_sync_debug_mode("error")``, where a host sync raises,
+    or profiled (the yielded dict gets the loop's wall seconds and the
+    device's busy microseconds)."""
+    from repro_torch.async_gossip.compiled import RoundGraphs
+
+    run, seen = RoundGraphs.run, {}
+
+    def wrapped(self, *args, **kwargs):
+        if profiled:
+            out = []
+            events, seen["wall"], _ = device_window(lambda: out.append(run(self, *args, **kwargs)), 1, cpu=False)
+            seen["busy_us"], seen["activities"] = busy_us(events), len(events)
+            return out[0]
+        torch.cuda.set_sync_debug_mode("error" if sync_debug else 0)
+        try:
+            return run(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    RoundGraphs.run = wrapped
+    try:
+        yield seen
+    finally:
+        RoundGraphs.run = run
+
+
+def phase_compiled(dev, bundle) -> dict:
+    """The compiled runtime: a scheduler replay with analytic sizes, then
+    each branch's round body captured once in a CUDA graph and replayed.
+
+    (a) At TASK's width on phase 8's fabric, each run compiled, then eager
+    with analytic payloads: sync, bounded 1 and full (T = 3); the composed
+    run (acked, inverse-age damping, dropout, a JSONL sink; T = 3);
+    kernel_quant bounded 1 (T = 2); async MDBO and MADSBO bounded 1 (T = 2,
+    steps 1e-3).  Each compiled run equals its eager twin bit for bit
+    (state, every metric, the ledger; the composed run's records too) and
+    captures at most one graph a branch (the composed run exactly one); a
+    second, profiled compiled run of each C2DFB config launches B1
+    (kernel_topk) or B4 (kernel_quant) 4*K*T times.  Prints the captures,
+    the peak device memory against the eager twin's and the seconds a
+    round of eager measured (phase 8), eager analytic and compiled.
+
+    (b) At the compiled axis's config of the reference's async benchmark
+    (benchmarks/bench_async.py: m = 10, K = 6, n = 500, p = 30, c = 5, topk
+    at 0.5, ring), T = 50, for sync, bounded 1 and full: eager (measured
+    and analytic), compiled cold and warm through one fn_cache (equal to
+    eager analytic bit for bit), and the speed-up; the captures equal at
+    T = 25 and T = 50; a warm run's replay loop under
+    set_sync_debug_mode("error"), and another profiled for the device's
+    idle share in the loop.
+
+    (c) A compiled bounded-1 run on er(10, 0.4), on the card and on the
+    host: states within TOL, the integers and seconds equal.
+
+    Returns the profiled B1 and B4 counts of (a)'s kernel_topk bounded-1
+    and kernel_quant runs."""
+    import tempfile
+
+    from repro_torch.async_gossip import (
+        graph_captures, reset_graph_captures, run_async, run_async_compiled, run_baseline_async,
+    )
+    from repro_torch.async_gossip import engine as E
+    from repro_torch.core import baselines as B
+    from repro_torch.core.c2dfb import C2DFBConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.net import LinkDropoutSchedule, make_fabric
+    from repro_torch.obs import JsonlSink, Obs, parity_rows, read_jsonl
+
+    K = CFG["K"]
+    problem, x0, y0 = bundle.problem, bundle.x0, bundle.y0
+    topo = ring(TASK["m"])
+    tmp = tempfile.TemporaryDirectory()
+
+    def c2dfb(cfg_kw, T_, gen_seed=None, jsonl=False, **kw):
+        """make(eager, cache) of a C2DFB run at TASK's width on the geo
+        fabric (``cache``: the compiled run's fn_cache).  Every run of a
+        stochastic config draws from one generator, seeded anew: the graphs
+        of a cached run replay the generator they registered."""
+        source = None if gen_seed is None else torch.Generator(device=dev)
+
+        def make(eager, cache=None):
+            def fn():
+                gen = None if source is None else source.manual_seed(gen_seed)
+                extra = dict(kw)
+                if jsonl:
+                    extra["schedule"] = LinkDropoutSchedule(topo, **DROPOUT)
+                    extra["obs"] = Obs(sink=JsonlSink(f"{tmp.name}/{'eager' if eager else 'compiled'}.jsonl"))
+                args = (problem, topo, C2DFBConfig(**cfg_kw), x0, y0, T_, gen, make_fabric(topo, **GEO))
+                res = (run_async(*args, payload_bytes="analytic", device=dev, **extra) if eager
+                       else run_async_compiled(*args, fn_cache=cache, device=dev, **extra))
+                if jsonl:
+                    extra["obs"].close()
+                return res
+            return fn
+        return make
+
+    def baseline(alg, bcfg):
+        return lambda eager, cache=None: lambda: run_baseline_async(
+            alg, problem, topo, bcfg, x0, y0, 2, make_fabric(topo, **GEO), policy="bounded", bound=1,
+            compiled=not eager, fn_cache=cache, device=dev)
+
+    runs = [  # (tag, T, make(eager) -> fn, the kernel counted, phase 8's eager measured run)
+        ("sync", T, c2dfb(CFG, T, policy="sync"), "block_topk", "sync"),
+        ("bounded1", T, c2dfb(CFG, T, policy="bounded", bound=1), "block_topk", "bounded1"),
+        ("full", T, c2dfb(CFG, T, policy="full"), "block_topk", "full"),
+        ("composed", T, c2dfb(CFG, T, jsonl=True, policy="bounded", bound=1, version_rule="acked",
+                              mixing_damping="inverse-age"), None, "bounded1 acked inverse-age dropout obs"),
+        ("kernel_quant bounded1", 2, c2dfb(CFG_QUANT, 2, gen_seed=0, policy="bounded", bound=1), "quantize", None),
+        ("mdbo bounded1", 2, baseline("mdbo", B.MDBOConfig(neumann_eta=1e-3)), None, "mdbo bounded1"),
+        ("madsbo bounded1", 2, baseline("madsbo", B.MADSBOConfig(eta_v=1e-3)), None, "madsbo bounded1"),
+    ]
+    counted = {}
+    for tag, T_, make, kernel, measured_tag in runs:
+        probes = len(E._ANALYTIC_BYTES_CACHE)
+        want, wall_e, peak_e = _timed_run(make(True))
+        cache: dict = {}
+        reset_graph_captures()
+        got, wall_c, peak_c = _timed_run(make(False, cache))
+        captures, probe = graph_captures(), len(E._ANALYTIC_BYTES_CACHE) - probes
+        warm, wall_w, _ = _timed_run(make(False, cache))
+        check(graph_captures() == captures, f"{tag}: the warm run captured again")
+        del cache
+        _same_run(tag, got, want)
+        _same_run(f"{tag} (warm)", warm, want)
+        _finite(f"compiled {tag}", *got)
+        n_capt = sum(captures.values())
+        check(n_capt <= 2 and all(v == 1 for v in captures.values()), f"{tag}: captures {captures}")
+        if tag == "composed":
+            check(n_capt == 1, f"composed: captures {captures}, want exactly 1")
+            recs = {k: read_jsonl(f"{tmp.name}/{k}.jsonl") for k in ("compiled", "eager")}
+            for kind, n in (("round", T_), ("node", T_ * TASK["m"])):
+                rows = [parity_rows(r, kind=kind) for r in recs.values()]
+                check(rows[0] == rows[1] and len(rows[0]) == n, f"composed: the {kind} records differ")
+        line = (f"[compiled] {tag}: captures {captures}; peak device memory above what the run found allocated "
+                f"{peak_c} B compiled, {peak_e} B eager analytic; s a round: eager measured {ASYNC_WALLS.get(measured_tag)!r}, eager analytic "
+                f"{wall_e / T_!r}, compiled cold {wall_c / T_!r} (bodies built and captured in the run), warm "
+                f"{wall_w / T_!r} (graphs replayed from the first run's fn_cache); the analytic probe ran {probe}x")
+        if kernel is not None:
+            # two profiled cold runs: the profiler has been seen to miss 2 of
+            # the 120 B1 records of such a run on an H100 (its results
+            # bit-equal, so the kernels ran); one run must count exactly and
+            # neither more
+            seen = []
+            for _ in range(2):
+                again, counts, records = kernel_counts(make(False))
+                _same_run(f"{tag} (profiled)", again, want)
+                seen.append((counts[kernel], records, counts))
+                del again
+            (n1, r1, _), (n2, r2, _) = seen
+            want_n = 4 * K * T_
+            check(max(n1, n2) == want_n,
+                  f"{tag}: the profiler saw {n1} and {n2} {kernel} launches in {r1} and {r2} device records, "
+                  f"want 4*K*T = {want_n}")
+            line += (f"; two profiled cold runs launched {seen[0][2]} and {seen[1][2]} in {r1} and {r2} device "
+                     f"records (4*K*T = {want_n})")
+            counted[tag] = max(seen)[2]
+        print(line)
+        del got, want, warm
+    tmp.cleanup()
+    phase_compiled_small(dev)
+    phase_compiled_host(dev)
+    return {"block_topk": counted["bounded1"]["block_topk"], "quantize": counted["kernel_quant bounded1"]["quantize"]}
+
+
+# the compiled axis of the reference's async benchmark (benchmarks/bench_async.py:255-300)
+SMALL_COMPILED_TASK = dict(m=10, n=500, p=30, c=5, h=0.8, seed=0)
+SMALL_COMPILED_CFG = dict(lam=10.0, eta_out=0.3, gamma_out=0.5, eta_in=0.3, gamma_in=0.3, K=6, compressor="topk",
+                          comp_ratio=0.5)
+
+
+def phase_compiled_small(dev) -> None:
+    """(b) of `phase_compiled`."""
+    from repro_torch.async_gossip import graph_captures, reset_graph_captures, run_async, run_async_compiled
+    from repro_torch.core.c2dfb import C2DFBConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.data.bilevel_tasks import coefficient_tuning_task
+    from repro_torch.net import make_fabric
+
+    b = coefficient_tuning_task(**SMALL_COMPILED_TASK, device=dev)
+    topo, cfg = ring(SMALL_COMPILED_TASK["m"]), C2DFBConfig(**SMALL_COMPILED_CFG)
+    Tb = 50
+
+    def go(T_, policy, bound, mode=None, cache=None):
+        args = (b.problem, topo, cfg, b.x0, b.y0, T_, None, make_fabric(topo, **GEO))
+        if mode is not None:
+            return run_async(*args, policy=policy, bound=bound, payload_bytes=mode, device=dev)
+        return run_async_compiled(*args, policy=policy, bound=bound, fn_cache=cache, device=dev)
+
+    go(2, "bounded", 1, "analytic")  # traces the oracles at this config
+    for policy, bound in (("sync", 0), ("bounded", 1), ("full", 0)):
+        tag = f"{policy}{bound if policy == 'bounded' else ''}"
+        measured, w_meas, _ = _timed_run(lambda: go(Tb, policy, bound, "measured"))
+        analytic, w_ana, _ = _timed_run(lambda: go(Tb, policy, bound, "analytic"))
+        cache: dict = {}
+        reset_graph_captures()
+        cold, w_cold, _ = _timed_run(lambda: go(Tb, policy, bound, cache=cache))
+        capt = graph_captures()
+        warm, w_warm, _ = _timed_run(lambda: go(Tb, policy, bound, cache=cache))
+        check(graph_captures() == capt, f"small {tag}: the warm run captured again ({graph_captures()})")
+        for what, r in (("cold", cold), ("warm", warm)):
+            _same_run(f"small {tag} compiled {what}", r, analytic)
+        with replay_loop(sync_debug=True):
+            guarded = go(Tb, policy, bound, cache=cache)
+        _same_run(f"small {tag} under sync debug", guarded, analytic)
+        with replay_loop(profiled=True) as seen:
+            go(Tb, policy, bound, cache=cache)
+        by_T = {}
+        for T_ in (25, 50):
+            reset_graph_captures()
+            go(T_, policy, bound, cache={})
+            by_T[T_] = graph_captures()
+        check(by_T[25] == by_T[50] and sum(by_T[50].values()) <= 2, f"small {tag}: captures {by_T}")
+        busy = seen["busy_us"] / 1e6
+        print(f"[compiled small] {tag}, T = {Tb}: wall eager measured {w_meas!r} s, eager analytic {w_ana!r} s, "
+              f"compiled cold {w_cold!r} s, warm {w_warm!r} s; speed-up of warm compiled over eager analytic "
+              f"{w_ana / w_warm!r}x, over eager measured {w_meas / w_warm!r}x; captures {by_T[25]} at T = 25, "
+              f"{by_T[50]} at T = 50; a warm replay loop ran under set_sync_debug_mode('error'); profiled warm "
+              f"replay loop (device activity only): wall {seen['wall']!r} s, device busy {busy!r} s, idle share "
+              f"{1 - busy / seen['wall']!r}, {seen['activities']} device activities; staleness_max "
+              f"{sorted(set(int(a) for a in warm[1]['staleness_max']))}")
+        del measured, analytic, cold, warm, guarded
+
+
+def phase_compiled_host(dev) -> None:
+    """(c) of `phase_compiled`: a compiled bounded-1 run on er(10, 0.4) with
+    the geo fabric, card against host."""
+    from repro_torch.async_gossip import graph_captures, reset_graph_captures, run_async_compiled
+    from repro_torch.async_gossip.compiled import _tensors
+    from repro_torch.core.c2dfb import C2DFBConfig
+    from repro_torch.core.topology import make_topology
+    from repro_torch.data.bilevel_tasks import coefficient_tuning_task
+    from repro_torch.net import make_fabric
+
+    topo = make_topology("er", 10, p=0.4, seed=0)
+    cfg = C2DFBConfig(K=3, compressor="kernel_topk", comp_ratio=0.2, comp_block=128)
+    out = {}
+    for d in ("cpu", dev):
+        b = coefficient_tuning_task(m=10, n=400, p=64, c=4, seed=0, device=d)
+        reset_graph_captures()
+        out[d] = run_async_compiled(b.problem, topo, cfg, b.x0, b.y0, 5, fabric=make_fabric(topo, **GEO),
+                                    policy="bounded", bound=1, device=d)
+    (sc, mc), (sg, mg) = out["cpu"], out[dev]
+    for la, lb in zip(_tensors(sc), _tensors(sg)):
+        check(torch.allclose(lb.cpu(), la, **TOL), "small compiled run: the card's state differs from the host's")
+    for k in ("sim_seconds", "wire_bytes", "staleness_max", "staleness_mean", "staleness_hist"):
+        check(np.array_equal(mc[k], mg[k]), f"small compiled run: {k} differs between card and host")
+    check(torch.equal(mc["measured_bytes"], mg["measured_bytes"].cpu()), "small compiled run: measured_bytes differ")
+    check(all(np.array_equal(a.ages, b.ages) for a, b in zip(mc["ledger"].loops, mg["ledger"].loops)),
+          "small compiled run: ages differ between card and host")
+    print(f"[compiled small] bounded 1 on er(10, 0.4), T = 5: card and host agree (rtol {TOL['rtol']}, atol "
+          f"{TOL['atol']}; integers equal); card captures {graph_captures()}, wire_bytes {mg['wire_bytes'].tolist()}, "
+          f"measured_bytes {mg['measured_bytes'].tolist()}")
 
 
 # the Erdős–Rényi graph make_topology("er", 10, p=0.4, seed=0) draws
@@ -1479,9 +1820,13 @@ def main() -> int:
     kernels["block_topk"]["async_launches"] = asy["block_topk"]
     kernels["pack_sparse_blocks"]["async_launches"] = asy["pack_sparse_blocks"]
     kernels["quantize"]["async_launches"] = asy["quantize"]
-    del bundle
     # 9. small input, card against host (with a fabric and a schedule, and async too)
     phase_small_input(dev)
+    # 10. the compiled runtime: each branch's round body captured once and replayed
+    com = phase_compiled(dev, bundle)
+    kernels["block_topk"]["compiled_launches"] = com["block_topk"]
+    kernels["quantize"]["compiled_launches"] = com["quantize"]
+    del bundle
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

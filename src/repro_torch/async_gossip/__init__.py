@@ -1,6 +1,5 @@
 """repro_torch.async_gossip — event-driven asynchronous gossip with
-staleness-aware mixing (``repro.async_gossip``'s counterpart, the eager
-engine).
+staleness-aware mixing (``repro.async_gossip``'s counterpart).
 
 * ``scheduler`` — `AsyncScheduler`: per-node clocks, per-message arrivals
   (NIC egress + link model + stragglers), and the sync / bounded-staleness
@@ -15,13 +14,21 @@ engine).
   `run_baseline_async` (MADSBO / MDBO value-gossip loops under the same
   scheduler).  Zero-age rounds take the synchronous path (a branch on the
   host ages), so they are bit-identical to sync.
+* ``compiled`` — `run_async_compiled` / `run_baseline_async_compiled`
+  (``run(..., compiled=True)``): the scheduler replayed up front with
+  analytic sizes, then the same round bodies run from the stacked ages;
+  on a card each branch's body is captured once in a CUDA graph and
+  replayed (`graph_captures` counts the captures).
 * ``ledger``   — `StalenessLedger`: per-edge age histograms and the
   consensus-error-vs-simulated-seconds curves.
-
-The reference's compiled runtime (``run_async_compiled``,
-``run_baseline_async_compiled``) is not ported yet.
 """
 
+from repro_torch.async_gossip.compiled import (
+    graph_captures,
+    reset_graph_captures,
+    run_async_compiled,
+    run_baseline_async_compiled,
+)
 from repro_torch.async_gossip.engine import (
     analytic_message_bytes,
     async_c2dfb_round,
@@ -86,15 +93,19 @@ __all__ = [
     "delayed_value_scan",
     "deterministic_ages",
     "edge_age_samples",
+    "graph_captures",
     "init_history",
     "mix_delta_delayed",
     "push_history",
     "record_trace",
     "replay_staleness_rows",
     "required_depth",
+    "reset_graph_captures",
     "reset_trace_counts",
     "run_async",
+    "run_async_compiled",
     "run_baseline_async",
+    "run_baseline_async_compiled",
     "staleness_stats",
     "trace_counts",
     "validate_damping",

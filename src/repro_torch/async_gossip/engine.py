@@ -32,8 +32,9 @@ loop's d and s messages, then the z loop's), then runs its own draws
 from ``split(fold_in(keys[t], 0xB17E))``.  The analytic probe draws from a
 source of its own and never advances the run's.
 
-The compiled runtime (one scan over all rounds) is not ported yet:
-``compiled=True`` raises.
+The compiled runtime (a scheduler replay, then the same round bodies
+replayed from CUDA graphs on a card) is `repro_torch.async_gossip.compiled`;
+``run_baseline_async(compiled=True)`` dispatches there.
 """
 
 from __future__ import annotations
@@ -91,12 +92,6 @@ from repro_torch.transport.base import as_transport
 #: "analytic" prices every round with the constant
 #: `analytic_message_bytes` size (the compiled runtime's timing model).
 PAYLOAD_MODES = ("measured", "analytic")
-
-COMPILED_NOT_PORTED = (
-    "compiled=True selects the asynchronous engine's compiled runtime "
-    "(ROADMAP item A8b: one scan over all rounds from a scheduler replay), "
-    "which the port does not have yet; drop compiled to run the eager engine"
-)
 
 # ---------------------------------------------------------------------------
 # build accounting + the one keyed cache every engine path shares
@@ -420,6 +415,7 @@ def async_round_cost(
     generator,
     body,
     *args,
+    took_delayed: bool | None = None,
 ):
     """Run round 0's body ``body(state, generator, *args)`` (the masked or
     the schedule body) under the counters and return its result with the
@@ -428,12 +424,15 @@ def async_round_cost(
     ``lax.cond`` there, whose two branches XLA adds up, so the branch that
     round 0 did not take is counted on the meta device (`meta_cost`: shapes
     only, no execution, no draw from the run's source).  The counted round
-    is the run's own round 0: no extra round runs on real data."""
+    is the run's own round 0: no extra round runs on real data.  Which
+    branch round 0 took is read from its host ages (``args[:2]``) unless
+    ``took_delayed`` says it."""
     expected = c2dfb_oracle_calls(cfg)
     out, cost = round_cost(body, state, generator, *args, expected_oracles=expected, label="c2dfb")
     if plan.Ws is not None:
         return out, cost
-    took_delayed = _stale(*args[:2])
+    if took_delayed is None:
+        took_delayed = _stale(*args[:2])
     ages = _meta_ages(cfg.K, topo.m) if not took_delayed else None
     other = meta_cost(
         lambda st, pb: async_c2dfb_round(
@@ -445,15 +444,18 @@ def async_round_cost(
     return out, cost.plus(other)
 
 
-def baseline_round_cost(alg: str, problem, topo, cfg, depth: int, damping: str, decay: float, state, *ages):
-    """`async_round_cost`'s MADSBO/MDBO twin: run round 0's
-    `baseline_masked_round` under the counters, and count the branch it
-    did not take on the meta device; returns (result, `RoundCost`)."""
+def baseline_round_cost(
+    alg: str, problem, topo, cfg, depth: int, damping: str, decay: float, state, *ages, body=None
+):
+    """`async_round_cost`'s MADSBO/MDBO twin: run round 0's body
+    ``body(state)`` (by default `baseline_masked_round` on the host
+    ``ages``) under the counters, and count the branch the ages did not
+    take on the meta device; returns (result, `RoundCost`)."""
     expected = oracle_calls_for(alg, cfg)
     kw = dict(problem=problem, topo=topo, cfg=cfg, depth=depth, damping=damping, decay=decay)
-    out, cost = round_cost(
-        lambda st: baseline_masked_round(alg, st, *ages, **kw), state, expected_oracles=expected, label=alg
-    )
+    if body is None:
+        body = lambda st: baseline_masked_round(alg, st, *ages, **kw)  # noqa: E731
+    out, cost = round_cost(body, state, expected_oracles=expected, label=alg)
     took_delayed = _stale(*ages)
     m = topo.m
     meta = [_meta_ages(a.shape[0], m) for a in ages] if not took_delayed else [None] * len(ages)
@@ -839,15 +841,22 @@ def run_baseline_async(
     value-gossip loops run event-driven with age-gated mixing; the
     hypergradient assembly and upper-level update stay at the (barrier)
     round boundary, mirroring the sync baselines.  ``mixing_damping`` and
-    ``version_rule`` as in `run_async`.  ``compiled=True`` (the compiled
-    runtime) is not ported yet and raises.  Metrics: the round body's
-    tensors stacked over rounds, host ``sim_seconds`` and ``wire_bytes``,
-    and the ``ledger``."""
+    ``version_rule`` as in `run_async`.  ``compiled=True`` runs the
+    compiled runtime (`repro_torch.async_gossip.compiled
+    .run_baseline_async_compiled`).  Metrics: the round body's tensors
+    stacked over rounds, host ``sim_seconds`` and ``wire_bytes``, and the
+    ``ledger``."""
     if alg not in ("madsbo", "mdbo"):
         raise ValueError(f"unknown async baseline {alg!r}")
     validate_damping(mixing_damping)
     if compiled:
-        raise ValueError(COMPILED_NOT_PORTED)
+        from repro_torch.async_gossip.compiled import run_baseline_async_compiled
+
+        return run_baseline_async_compiled(
+            alg, problem, topo, cfg, x0, y0, T, fabric, policy=policy, bound=bound, version_rule=version_rule,
+            ledger=ledger, mixing_damping=mixing_damping, damping_decay=damping_decay, fn_cache=fn_cache,
+            obs=obs, device=device,
+        )
     obs = as_obs(obs)
     device = run_device(problem, x0, y0, device)
     transport = as_transport(fabric).bind(topo)

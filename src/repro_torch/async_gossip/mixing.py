@@ -70,7 +70,9 @@ def damping_factor(ages, policy: str, decay: float = 0.5) -> torch.Tensor:
         return 1.0 / (1.0 + a)
     if not 0.0 < decay <= 1.0:
         raise ValueError(f"exp-decay needs decay in (0, 1], got {decay}")
-    return torch.pow(torch.tensor(decay, dtype=torch.float32, device=a.device), a)
+    # the base is filled on the device (no host copy), so a captured round
+    # can hold it
+    return torch.pow(torch.full_like(a, decay), a)
 
 
 def damp_weights(W: torch.Tensor, ages, policy: str, decay: float = 0.5) -> torch.Tensor:

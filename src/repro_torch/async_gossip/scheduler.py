@@ -171,7 +171,7 @@ class RoundTimeline:
     of the timeline-replay API.  ``drive_round`` produces one per round
     (eagerly, interleaved with the round math) and ``replay_rounds``
     stacks T of them up front so the whole run can ride a single
-    scan (the compiled runtime, not ported yet).
+    scan (the compiled runtime, `repro_torch.async_gossip.compiled`).
 
     x_end is the clock after the outer x barrier (the y-loop's start
     fallback for the ledger); t_end is the round boundary (after the s_x

@@ -313,6 +313,7 @@ def madsbo_round_async(
     delayed: bool = True,
     damping: str = "none",
     decay: float = 0.5,
+    W: torch.Tensor | None = None,
 ) -> tuple[MADSBOState, dict]:
     """MADSBO round taking the AsyncScheduler's per-step edge ages ((K, m,
     m) and (Q, m, m) integer tensors on the run's device): the LL and HIGP
@@ -321,10 +322,11 @@ def madsbo_round_async(
     `_madsbo_round_core`.  With ``delayed=False`` the synchronous scans
     run, so zero-age rounds are bit-identical to ``madsbo_round``.
     ``damping`` applies the staleness-adaptive mixing policy
-    (`repro_torch.async_gossip.mixing.DAMPING_POLICIES`)."""
+    (`repro_torch.async_gossip.mixing.DAMPING_POLICIES`); ``W`` is the
+    topology's mixing matrix on the run's device, made here when None."""
     from repro_torch.async_gossip.engine import delayed_value_scan
 
-    W = _mixing_matrix(topo, state.x)
+    W = _mixing_matrix(topo, state.x) if W is None else W
     if delayed:
         ll_fn = lambda y0, upd: delayed_value_scan(y0, W, cfg.gamma, ages_ll, depth, upd, damping, decay)  # noqa: E731
         higp_fn = lambda v0, upd: delayed_value_scan(v0, W, cfg.gamma, ages_higp, depth, upd, damping, decay)  # noqa: E731
@@ -344,14 +346,15 @@ def mdbo_round_async(
     delayed: bool = True,
     damping: str = "none",
     decay: float = 0.5,
+    W: torch.Tensor | None = None,
 ) -> tuple[MDBOState, dict]:
     """MDBO round with a staleness-gated LL gossip loop; the Neumann series
     is local compute (no gossip in this realization) and the UL update
     stays at the barrier round boundary, both in the shared
-    `_mdbo_round_core`.  ``damping`` as in `madsbo_round_async`."""
+    `_mdbo_round_core`.  ``damping`` and ``W`` as in `madsbo_round_async`."""
     from repro_torch.async_gossip.engine import delayed_value_scan
 
-    W = _mixing_matrix(topo, state.x)
+    W = _mixing_matrix(topo, state.x) if W is None else W
     if delayed:
         ll_fn = lambda y0, upd: delayed_value_scan(y0, W, cfg.gamma, ages_ll, depth, upd, damping, decay)  # noqa: E731
     else:

@@ -20,8 +20,9 @@ run's device, or a source object); draws follow the order written down in
 ``run`` takes a topology ``schedule``, a network ``fabric`` (host numpy),
 a telemetry handle ``obs`` and the asynchronous engine's arguments
 (``async_mode`` and the rest, dispatched to
-`repro_torch.async_gossip.engine.run_async`); the transports and the async
-engine's compiled runtime wait for later slices of the port.
+`repro_torch.async_gossip.engine.run_async`, or with ``compiled=True`` to
+`repro_torch.async_gossip.compiled.run_async_compiled`); the transports wait
+for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -355,9 +356,12 @@ def run(
     it composes with ``schedule``.  ``version_rule`` ("common",
     "deterministic" or "acked") and ``mixing_damping`` ("none",
     "inverse-age" or "exp-decay", with ``damping_decay``) are async choices
-    and raise without ``async_mode``.  ``compiled=True`` (the async
-    engine's compiled runtime) and ``transport`` (the transports) are not
-    ported yet and raise a ValueError."""
+    and raise without ``async_mode``.  With ``async_mode``,
+    ``compiled=True`` runs the async engine's compiled runtime
+    (`repro_torch.async_gossip.compiled.run_async_compiled`: a scheduler
+    replay, then the round bodies replayed from CUDA graphs on a card);
+    without it, ``compiled=True`` raises.  ``transport`` (the transports)
+    is not ported yet and raises a ValueError."""
     if transport is not None:
         if fabric is not None:
             raise ValueError("pass fabric OR transport, not both — a transport owns its pricing fabric")
@@ -371,10 +375,17 @@ def run(
                 "async_mode requires a NetworkFabric: the asynchronous engine's "
                 "scheduler times every message on it"
             )
-        from repro_torch.async_gossip.engine import COMPILED_NOT_PORTED, run_async
-
         if compiled:
-            raise ValueError(COMPILED_NOT_PORTED)
+            from repro_torch.async_gossip.compiled import run_async_compiled
+
+            return run_async_compiled(
+                problem, topo, cfg, x0, y0, T, generator, fabric,
+                policy=async_mode, bound=staleness_bound, version_rule=version_rule, ledger=ledger,
+                schedule=schedule, mixing_damping=mixing_damping, damping_decay=damping_decay,
+                obs=obs, device=device,
+            )
+        from repro_torch.async_gossip.engine import run_async
+
         return run_async(
             problem, topo, cfg, x0, y0, T, generator, fabric,
             policy=async_mode, bound=staleness_bound, version_rule=version_rule, ledger=ledger,
@@ -383,10 +394,10 @@ def run(
         )
     if compiled:
         raise ValueError(
-            "compiled=True is the ASYNC runtime's two-phase scan (ROADMAP item "
-            "A8b, not ported yet); the synchronous path needs no compiled "
-            'runtime — drop compiled, or pass async_mode="sync"/"bounded"/'
-            '"full" (with a fabric) for the eager async engine'
+            "compiled=True is the ASYNC runtime's two-phase scan; the "
+            "synchronous path needs no compiled runtime — drop "
+            'compiled, or pass async_mode="sync"/"bounded"/"full" (with a '
+            "fabric) to run the compiled async engine"
         )
     if version_rule != "common":
         raise ValueError(

@@ -158,6 +158,15 @@ class OracleGraphs:
         self._x: list[torch.Tensor] = []  # the memo's x, kept alive: its ids key the memo
         self.traces = 0
 
+    def forget(self) -> None:
+        """Drop the memo and the x it was computed for: the next call
+        computes its invariant values anew.  A CUDA graph capture calls it
+        before (so the graph computes them from the x it holds, instead of
+        reading an earlier round's values on every replay) and after (so no
+        tensor of the capture stays behind in the memo)."""
+        self._memo.clear()
+        self._tokens, self._x = None, []
+
     def _intern(self, key, op) -> int:
         eid = self._eids.get(key)
         if eid is None:

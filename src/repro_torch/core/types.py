@@ -106,3 +106,19 @@ def tree_count(a: Tree) -> int:
     """Number of scalar entries per *single node* (node axis excluded)."""
     return int(sum(x.numel() // x.shape[0] for x in tree_leaves(a)))
 
+
+def donate_copy(tree: Any) -> Any:
+    """A fresh tensor for every tensor of ``tree`` (through dicts, tuples and
+    named tuples; anything else is kept), so a run that writes its carry in
+    place never writes the caller's tensors: ``init_state`` aliases x0/y0,
+    which callers reuse across runs."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: donate_copy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(donate_copy(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(donate_copy(v) for v in tree)
+    return tree
+

@@ -88,6 +88,13 @@ class Obs:
     def heartbeat_on(self) -> bool:
         return self.sink is not None and self.heartbeat_every > 0
 
+    def heartbeat_cache_key(self) -> tuple:
+        """The cache-key component of a compiled run's round bodies built
+        with this handle, as the reference keys its scans: a body cached
+        for one heartbeat handle is never reused with another (or with
+        heartbeats off)."""
+        return ("hb", self.heartbeat_every, id(self)) if self.heartbeat_on else ("hb", 0)
+
     def close(self) -> None:
         close = getattr(self.sink, "close", None)
         if close is not None:

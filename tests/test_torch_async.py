@@ -843,11 +843,12 @@ def _refusals(pb):
         "async without a fabric": (lambda: run(async_mode="bounded"), "requires a NetworkFabric"),
         "version_rule without async": (lambda: run(version_rule="acked", fabric=fab), "async protocol choice"),
         "damping without async": (lambda: run(mixing_damping="inverse-age"), "staleness policy"),
-        "compiled async": (lambda: run(async_mode="bounded", fabric=fab, compiled=True), "A8b"),
-        "compiled sync": (lambda: run(compiled=True), "A8b"),
-        "compiled baseline": (lambda: peng.run_baseline_async(
-            "mdbo", pb.problem, pt, PB.MDBOConfig(K=1, neumann_N=1), pb.x0, pb.y0, 1, fab, compiled=True,
-            device="cpu"), "A8b"),
+        "compiled async": (lambda: PA.run_async_compiled(pb.problem, pt, cfg, pb.x0, pb.y0, 1, fabric=fab,
+                                                         mixing_damping="linear", device="cpu"),
+                           "unknown mixing_damping"),
+        "compiled sync": (lambda: run(compiled=True), "ASYNC runtime's two-phase scan"),
+        "compiled baseline": (lambda: peng.run_baseline_async("f2sa", pb.problem, pt, None, pb.x0, pb.y0, 1, fab,
+                                                              compiled=True, device="cpu"), "unknown async baseline"),
         "transport": (lambda: run(transport=fab), "not ported yet"),
         "unknown damping": (lambda: run(async_mode="full", fabric=fab, mixing_damping="linear"),
                             "unknown mixing_damping"),
