@@ -68,7 +68,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    async benchmark, T = 50: eager against compiled cold and warm, captures
    equal at T = 25 and 50, the replay loop under
    set_sync_debug_mode("error") and its device idle share; and a compiled
-   run on er(10, 0.4), card against host.
+   run on er(10, 0.4), card against host;
+11. the transports, at the width of phase 4 on the ring with a WAN pricing
+   fabric, T = 3: run(transport=DeviceTransport(fused=True)), every
+   residual packed on the card (B2) and unpacked by every receiver (B3):
+   B1 120, B2 120, B3 360 launches, no block over kpad survivors, each
+   round's wire bytes the degree sum of its node bytes, one fused round
+   body profiled; the dense exchange metered in the same chunked format,
+   bit for bit the fused run (state, every metric, every node's bytes on
+   every step and round: measure_tree_bytes_chunked of the dense slices);
+   the hypergradient-norm gap to phase 4's run() printed; kernel_quant on a
+   torch.Generator, T = 2 (B4 80, the closed-form bytes); on m = 4, ring and
+   star, dense and fused, and make_sharded_inner_loop, card against host.
+   B2 and B3 are timed at the exchange's stacked shapes with phase 3.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -648,8 +660,8 @@ def build_task(dev):
 
 def phase_main_path(dev, bundle, cfg_kw: dict, kernel: str, generator=None):
     """T rounds of `run` with ``cfg_kw``; ``kernel`` (a launch counter) must
-    count exactly 4*K*T launches.  Returns the final state, config, topology
-    and every launch counter of the run."""
+    count exactly 4*K*T launches.  Returns the final state, config, topology,
+    every launch counter of the run and its metrics."""
     from repro_torch.core.c2dfb import C2DFBConfig, run
     from repro_torch.core.topology import ring
     from repro_torch.kernels import _build
@@ -680,7 +692,7 @@ def phase_main_path(dev, bundle, cfg_kw: dict, kernel: str, generator=None):
     got = tuple(int(b) for b in mets["measured_bytes"])
     check(got == want, f"measured_bytes {got}, want {want}")
     profile_round(bundle.problem, topo, cfg, state, generator, tag)
-    return state, cfg, topo, counts
+    return state, cfg, topo, counts, mets
 
 
 def profile_round(problem, topo, cfg, state, generator, tag) -> None:
@@ -1757,6 +1769,299 @@ def phase_small_async_baselines(dev, topo):
               f"(compute_flops, hbm_bytes) {costs[dev][0]}")
 
 
+# ---------------------------------------------------------------- phase 11: the transports
+
+
+def _recording_meter(transport) -> list:
+    """Keep each round's per-phase node bytes of ``transport``'s metering:
+    returns the list its wrapped ``meter_round`` appends them to."""
+    reports = []
+    meter = transport.meter_round
+
+    def recording(*args, **kw):
+        rep = meter(*args, **kw)
+        reports.append(rep["node_bytes"])
+        return rep
+
+    transport.meter_round = recording
+    return reports
+
+
+def _transport_run(dev, bundle, transport, cfg_kw: dict, T_: int, generator=None) -> dict:
+    """``run(transport=)`` at TASK's width on the ring: the state, the
+    metrics, the launch counts, each round's per-phase node bytes, the wall
+    seconds and the peak device memory above what was held before."""
+    from repro_torch.core.c2dfb import C2DFBConfig, run
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import _build
+
+    reports = _recording_meter(transport)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, mets = run(bundle.problem, ring(TASK["m"]), C2DFBConfig(**cfg_kw), bundle.x0, bundle.y0, T=T_,
+                      generator=generator, device=dev, transport=transport)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(state=state, mets=mets, counts=_build.launch_counts(), reports=reports, wall=wall,
+                peak=torch.cuda.max_memory_allocated() - held)
+
+
+def _check_transport_run(tag: str, out: dict, cfg_kw: dict, T_: int) -> None:
+    """Finite results of the right shapes; each round's wire bytes are the
+    degree-weighted sum of its node bytes and its measured bytes the inner
+    node bytes plus the dense outer term; prints each round's seconds."""
+    from repro_torch.core.topology import ring
+
+    m, p = TASK["m"], TASK["p"]
+    deg = [len(n) for n in ring(m).neighbors]
+    state, mets = out["state"], out["mets"]
+    for leaf in (state.x, state.s_x, state.inner_y.d, state.inner_z.d):
+        check(bool(torch.isfinite(leaf).all()), f"{tag}: the state holds non-finite values")
+    check(tuple(state.inner_y.d.shape) == (m, p, TASK["c"]), f"{tag}: y has the wrong shape")
+    for k, v in mets.items():
+        check(v.shape[0] == T_ and bool(np.isfinite(v.astype(np.float64)).all()), f"{tag}: metric {k} is {v}")
+    check(len(out["reports"]) == T_ and all(len(r) == 2 + 4 * cfg_kw["K"] for r in out["reports"]),
+          f"{tag}: the meter priced {[len(r) for r in out['reports']]} phases a round")
+    for t, nb in enumerate(out["reports"]):
+        wire = sum(d * b for v in nb.values() for d, b in zip(deg, v))
+        inner = sum(sum(v) for label, v in nb.items() if not label.startswith("out/"))
+        check(wire == int(mets["wire_bytes"][t]), f"{tag} round {t}: wire_bytes {mets['wire_bytes'][t]}, "
+              f"the node bytes sum to {wire}")
+        check(inner + 2 * p * 4 * m == int(mets["measured_bytes"][t]), f"{tag} round {t}: measured_bytes")
+        print(f"{tag} round {t}: wall {float(mets['wall_seconds'][t])!r} s, meter {float(mets['meter_seconds'][t])!r} s,"
+              f" sim_seconds {float(mets['sim_seconds'][t])!r}, wire_bytes {int(mets['wire_bytes'][t])}, "
+              f"measured_bytes {int(mets['measured_bytes'][t])}, hypergrad_norm {float(mets['hypergrad_norm'][t])!r}")
+    print(f"{tag} {T_} rounds in {out['wall']!r} s, launches {out['counts']}, peak device memory "
+          f"{out['peak']} bytes above what was held before the run")
+
+
+def profile_device_round(bundle, state, transport) -> None:
+    """One more fused round body from ``state`` (no metering), warm, then
+    profiled: its wall, the device busy share and the launches by kernel
+    name (B1 4*K, B2 4*K, B3 3 * 4*K on the ring)."""
+    from repro_torch.core.c2dfb import C2DFBConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.transport import make_device_round
+
+    K = CFG["K"]
+    round_fn = make_device_round(bundle.problem, ring(TASK["m"]), C2DFBConfig(**CFG), transport.mesh, fused=True)
+    args = (state.x, state.s_x, state.u_prev, state.inner_y, state.inner_z, None)
+    round_fn(*args)
+    events, wall, _ = device_window(lambda: round_fn(*args), 1)
+    busy = busy_us(events)
+    names = [e.name for e in events]
+    launches = {k: sum(pat in n for n in names)
+                for k, pat in (("topk_kernel", "topk_kernel"), ("pack_kernel", "::pack_kernel"),
+                               ("unpack_kernel", "::unpack_kernel"))}
+    by_name: dict[str, list] = {}
+    for e in events:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us()
+        acc[1] += 1
+    print(f"[transport] profiled fused round body: wall {wall!r} s, device busy {busy / 1e6!r} s "
+          f"({busy / 1e6 / wall:.3f} of the wall), {len(events)} device activities, launches {launches}")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[transport]   {us / 1e3:10.3f} ms  {n:5d}x  {name[:90]}")
+    check(launches == {"topk_kernel": 4 * K, "pack_kernel": 4 * K, "unpack_kernel": 3 * 4 * K},
+          f"a fused round launched {launches}")
+
+
+def transport_kernel_times(dev) -> dict:
+    """B2 and B3 at the fused exchange's stacked shapes (every rank's blocks
+    of a leaf in one launch: (m * nb, block) tiles of B1's output, packed
+    to kpad records), each bit for bit against its plain version and timed
+    beside its bound, a copy_ of its bytes and, for B3, zeros().scatter_add_."""
+    from repro_torch.kernels.pack_residuals import (
+        pack_sparse_blocks, pack_sparse_blocks_ref, padded_k, unpack_sparse_blocks, unpack_sparse_blocks_ref,
+    )
+    from repro_torch.kernels.topk_compress import block_topk_kernel
+
+    m, p, c, block = TASK["m"], TASK["p"], TASK["c"], CFG["comp_block"]
+    rows = m * -(-p * c // block)
+    k = max(1, int(round(CFG["comp_ratio"] * block)))
+    kpad = padded_k(k)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = block_topk_kernel(torch.randn((rows, block), generator=gen, device=dev), k)
+    vals, idx = pack_sparse_blocks(q, kpad, block)
+    rvals, ridx = pack_sparse_blocks_ref(q, kpad, block)
+    back = unpack_sparse_blocks(vals, idx, block)
+    rback = unpack_sparse_blocks_ref(vals, idx, block)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(vals), bits(rvals)) and torch.equal(idx, ridx), "stacked pack differs from its plain version")
+    check(torch.equal(back, q) and torch.equal(bits(back), bits(rback)), "stacked unpack(pack(q)) != q")
+    nbytes = q.numel() * 4 + vals.numel() * 8
+    idx64 = idx.to(torch.int64)
+    lib = torch.zeros((rows, block + 1), device=dev).scatter_add_(1, idx64, vals)[:, :block]
+    check(torch.equal(lib, back), "scatter_add_ yardstick disagrees with the stacked unpack")
+    out = {
+        "pack_sparse_blocks": dict(
+            shape=[rows, block], kpad=kpad, max_abs_err=float((vals - rvals).abs().max()),
+            **timed(lambda: pack_sparse_blocks(q, kpad, block)),
+            plain_ms=timed(lambda: pack_sparse_blocks_ref(q, kpad, block), iters=3, warmup=1)["ms"],
+            bound_ms=bound_ms(nbytes), bound_by="bytes", copy_ms=copy_ms(nbytes), library_ms=None,
+        ),
+        "unpack_sparse_blocks": dict(
+            shape=[rows, kpad], block=block, max_abs_err=float((back - rback).abs().max()),
+            **timed(lambda: unpack_sparse_blocks(vals, idx, block)),
+            plain_ms=timed(lambda: unpack_sparse_blocks_ref(vals, idx, block), iters=3, warmup=1)["ms"],
+            bound_ms=bound_ms(nbytes), bound_by="bytes", copy_ms=copy_ms(nbytes),
+            library_ms=timed(lambda: torch.zeros((rows, block + 1), device=dev).scatter_add_(1, idx64, vals))["ms"],
+        ),
+    }
+    for name, entry in out.items():
+        print(f"[transport kernels] {name} at the stacked shape: {entry}")
+    return out
+
+
+def phase_transport(dev, bundle, main_mets) -> dict:
+    """The transports.
+
+    (a) run(transport=DeviceTransport(fused=True, link="wan")) at TASK's
+    width, kernel_topk, ring, K = 10, T = 3: every residual packed on the
+    card (B2, one launch a broadcast over every rank's blocks), the ring's
+    two shifts moving the records, unpacked by every receiver and the sender
+    (B3, 3 a broadcast): B1 4*K*T, B2 4*K*T and B3 3 * 4*K*T launches; no
+    block held more than kpad survivors; each round's wire bytes the degree
+    sum of its node bytes.  One more fused round body profiled.
+
+    (b) The dense exchange at the same width, metered in the same chunked
+    format (DeviceTransport(chunk=1 << 16)): its state and every metric bit
+    for bit (a)'s, and its executed node bytes, which are
+    wire.measure_tree_bytes_chunked of each dense slice, equal (a)'s from
+    the packed records on every step and round.  The hypergradient-norm gap
+    to run()'s (phase 4) is printed, not held (near-ties, ROADMAP §C).
+    Then kernel_quant on a torch.Generator, T = 2, per-leaf format: B4
+    launches 4*K*T, every round meters the closed form.
+
+    (c) The small config, card against host (phase_transport_small).
+
+    (d), B2 and B3 timed at (a)'s stacked shapes, runs with phase 3
+    (transport_kernel_times), before anything else has run the profiler.
+
+    Returns the launch counts of B1, B2 and B3 in (a) and of B4 in (b)."""
+    from repro_torch.core.c2dfb import C2DFBConfig
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.transport import DeviceTransport
+    from repro_torch.transport import device as D
+
+    K = CFG["K"]
+    block, kpad = D.fused_pack_spec(C2DFBConfig(**CFG).make_compressor())
+    most = []
+    pack = D._pack_tree
+
+    def counting(tree, block_, kpad_):
+        vals, idx = pack(tree, block_, kpad_)
+        most.append(max(int((i < block_).sum(-1).max()) for i in tree_leaves(idx)))
+        return vals, idx
+
+    D._pack_tree = counting
+    fused_tr = DeviceTransport(fused=True, link="wan")
+    try:
+        fa = _transport_run(dev, bundle, fused_tr, CFG, T)
+    finally:
+        D._pack_tree = pack
+    _check_transport_run("[transport fused]", fa, CFG, T)
+    want = {"block_topk": 4 * K * T, "pack_sparse_blocks": 4 * K * T, "unpack_sparse_blocks": 3 * 4 * K * T}
+    got = {k: fa["counts"][k] for k in want}
+    check(got == want and fa["counts"]["quantize"] == 0, f"the fused run launched {fa['counts']}, want {want}")
+    check(len(most) == 4 * K * T and max(most) <= kpad, f"a block held {max(most)} survivors, kpad {kpad}")
+    print(f"[transport fused] most survivors in a block over the {len(most)} packs: {max(most)} (kpad {kpad}, "
+          f"k {round(CFG['comp_ratio'] * block)})")
+    profile_device_round(bundle, fa["state"], fused_tr)
+
+    fb = _transport_run(dev, bundle, DeviceTransport(link="wan", chunk=1 << 16), CFG, T)
+    _check_transport_run("[transport dense]", fb, CFG, T)
+    check(fb["counts"]["block_topk"] == 4 * K * T and fb["counts"]["pack_sparse_blocks"] == 0
+          and fb["counts"]["unpack_sparse_blocks"] == 0, f"the dense run launched {fb['counts']}")
+    from repro_torch.async_gossip.compiled import _tensors
+
+    check(all(_same_bits(a, b) for a, b in zip(_tensors(fa["state"]), _tensors(fb["state"]))),
+          "the dense exchange's state differs from the fused one's")
+    for k, v in fa["mets"].items():
+        if k not in ("wall_seconds", "meter_seconds", "sim_seconds"):
+            check(_same_bits(v, fb["mets"][k]), f"metric {k} differs between the fused and the dense exchange")
+    check(fa["reports"] == fb["reports"], "a node's executed bytes differ between the packed records and "
+          "measure_tree_bytes_chunked of the dense slice")
+    gap = np.abs(fa["mets"]["hypergrad_norm"] - main_mets["hypergrad_norm"].double().cpu().numpy())
+    print(f"[transport] fused and dense bit-identical (state, every metric; {sum(len(r) for r in fa['reports'])} "
+          f"phases x {TASK['m']} node bytes equal); hypergrad_norm gap to run(): {gap.tolist()} "
+          f"(run() {main_mets['hypergrad_norm'].tolist()})")
+
+    fq = _transport_run(dev, bundle, DeviceTransport(link="wan"), CFG_QUANT, 2,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    _check_transport_run("[transport quant]", fq, CFG_QUANT, 2)
+    check(fq["counts"]["quantize"] == 4 * CFG_QUANT["K"] * 2, f"the kernel_quant run launched {fq['counts']}")
+    check(all(int(b) == quant_round_bytes()[1] for b in fq["mets"]["measured_bytes"]),
+          f"kernel_quant measured_bytes {fq['mets']['measured_bytes'].tolist()}, want {quant_round_bytes()[1]}")
+    counts = dict(block_topk=fa["counts"]["block_topk"], pack_sparse_blocks=fa["counts"]["pack_sparse_blocks"],
+                  unpack_sparse_blocks=fa["counts"]["unpack_sparse_blocks"], quantize=fq["counts"]["quantize"])
+    del fa, fb, fq
+    phase_transport_small(dev)
+    return counts
+
+
+def phase_transport_small(dev) -> None:
+    """The device transport on a small input, card against host: ring (the
+    neighbour-shift engine) and star (the all-gather engine), dense and
+    fused, kernel_topk, with obs; then make_sharded_inner_loop on a
+    quadratic.  States within TOL; wire bytes, measured bytes, every
+    node's bytes and the rows' compute_flops / hbm_bytes equal."""
+    from repro_torch.core.c2dfb import C2DFBConfig, run
+    from repro_torch.core.compression import KernelBlockTopK
+    from repro_torch.core.distributed import make_sharded_inner_loop
+    from repro_torch.core.inner_loop import inner_init
+    from repro_torch.core.topology import make_topology
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.data.bilevel_tasks import coefficient_tuning_task
+    from repro_torch.obs import MemorySink
+    from repro_torch.transport import DeviceTransport, mesh_for_nodes
+
+    cfg = C2DFBConfig(K=3, compressor="kernel_topk", comp_ratio=0.2, comp_block=128)
+    for name in ("ring", "star"):
+        topo = make_topology(name, 4)
+        for fused in (False, True):
+            out = {}
+            for d in ("cpu", dev):
+                b = coefficient_tuning_task(m=4, n=200, p=64, c=4, seed=0, device=d)
+                sink = MemorySink()
+                st, mets = run(b.problem, topo, cfg, b.x0, b.y0, T=3, device=d, obs=sink,
+                               transport=DeviceTransport(fused=fused, link="wan"))
+                out[d] = (st, mets, [(r["compute_flops"], r["hbm_bytes"]) for r in sink.rows(kind="round")],
+                          [r["node_bytes"] for r in sink.rows(kind="node")])
+            (sc, mc, cc, nc), (sg, mg, cg, ng) = out["cpu"], out[dev]
+            tag = f"small {name} {'fused' if fused else 'dense'}"
+            for la, lb in zip(tree_leaves(sc.x) + tree_leaves(sc.inner_y.d) + tree_leaves(sc.inner_z.s_hat),
+                              tree_leaves(sg.x) + tree_leaves(sg.inner_y.d) + tree_leaves(sg.inner_z.s_hat)):
+                check(torch.allclose(lb.cpu(), la, **TOL), f"{tag}: the card's state differs from the host's")
+            for k in ("wire_bytes", "measured_bytes", "sim_seconds"):
+                check(np.array_equal(mc[k], mg[k]), f"{tag}: {k} differs between card and host")
+            check(nc == ng and cc == cg, f"{tag}: node bytes or (compute_flops, hbm_bytes) differ: {cg[0]}, {cc[0]}")
+            print(f"[small transport] {tag}: card and host agree; wire_bytes {mg['wire_bytes'].tolist()}, "
+                  f"measured_bytes {mg['measured_bytes'].tolist()}, (compute_flops, hbm_bytes) {cg[0]}")
+
+    m, d_ = 4, 256
+    rng = np.random.default_rng(0)
+    A = torch.as_tensor(np.stack([np.eye(d_) * (1 + 0.2 * i) for i in range(m)]), dtype=torch.float32)
+    bvec = torch.as_tensor(rng.normal(size=(m, d_)), dtype=torch.float32)
+    d0 = torch.as_tensor(rng.normal(size=(m, d_)), dtype=torch.float32)
+    res = {}
+    for d in ("cpu", dev):
+        data = {"A": A.to(d), "b": bvec.to(d)}
+        loop = make_sharded_inner_loop(mesh_for_nodes(m, d), make_topology("ring", m),
+                                       lambda w, dat: dat["A"] @ (w - dat["b"]),
+                                       KernelBlockTopK(ratio=0.2, block=128), 0.4, 0.1, 10)
+        st0 = inner_init(d0.to(d), lambda w: torch.einsum("mij,mj->mi", data["A"], w - data["b"]))
+        res[d] = loop(st0, None, data)
+    for a, b in zip(res["cpu"], res[dev]):
+        check(torch.allclose(b.cpu(), a, **TOL), "make_sharded_inner_loop: the card differs from the host")
+    print(f"[small transport] make_sharded_inner_loop (ring, kernel_topk, K = 10): card and host agree; "
+          f"consensus {float(((res[dev].d - res[dev].d.mean(0)) ** 2).sum())!r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1781,8 +2086,10 @@ def main() -> int:
         print(f"[build] {src}: {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
     check(ptxas and not any(st or ld for _, st, ld in ptxas.values()), "a kernel spills registers (or ptxas said nothing)")
 
-    # 3. kernels at main-path shapes
+    # 3. kernels at main-path shapes (and B2 and B3 at phase 11's stacked shapes)
     kernels = phase_kernels(dev)
+    for name, entry in transport_kernel_times(dev).items():
+        kernels[name]["transport"] = entry
     for entry, fn in [(kernels[n], f) for n, f in MAIN_INSTANCES.items()] + [
         (kernels["quantize"]["bf16"], QUANT_BF16_INSTANCE)
     ]:
@@ -1792,10 +2099,10 @@ def main() -> int:
         entry["spill_bytes"] = st + ld
     # 4. main paths: kernel_topk, then kernel_quant on the same task (f32 leaves)
     bundle = build_task(dev)
-    state, cfg, topo, counts = phase_main_path(dev, bundle, CFG, "block_topk")
+    state, cfg, topo, counts, main_mets = phase_main_path(dev, bundle, CFG, "block_topk")
     kernels["block_topk"]["launches"] = counts["block_topk"]
     gen = torch.Generator(device=dev).manual_seed(0)
-    qstate, qcfg, _, counts = phase_main_path(dev, bundle, CFG_QUANT, "quantize", gen)
+    qstate, qcfg, _, counts, _ = phase_main_path(dev, bundle, CFG_QUANT, "quantize", gen)
     kernels["quantize"]["launches"] = counts["quantize"]
     check(counts["block_topk_bf16"] == counts["quantize_bf16"] == 0, "an f32 main path launched a bf16 kernel")
     # the bf16 instances: both compressors on a bf16 leaf of the main width
@@ -1826,6 +2133,9 @@ def main() -> int:
     com = phase_compiled(dev, bundle)
     kernels["block_topk"]["compiled_launches"] = com["block_topk"]
     kernels["quantize"]["compiled_launches"] = com["quantize"]
+    # 11. the transports: the fused and dense device exchange, card against host, B2 and B3 at the stacked shapes
+    for name, n in phase_transport(dev, bundle, main_mets).items():
+        kernels[name]["transport_launches"] = n
     del bundle
 
     print(json.dumps({"kernels": list(kernels.values())}))

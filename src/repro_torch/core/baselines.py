@@ -20,9 +20,9 @@ not meter, counts ``ll_grad`` per lower-level gradient step and three
 ``ul_grad`` (the x-partials of f, g at y and g at z) per hypergradient.
 C2DFB(nc) draws from ``generator`` in the order of
 `repro_torch.core.compression` (per step: the d message, then the s one).
-MDBO and MADSBO take a network ``fabric`` (their dense phases priced as
-the reference prices them); `mdbo_round_async` and `madsbo_round_async`
-are their staleness-gated rounds, driven by
+MDBO and MADSBO take a network ``fabric`` or a ``transport`` (their dense
+phases priced as the reference prices them); `mdbo_round_async` and
+`madsbo_round_async` are their staleness-gated rounds, driven by
 `repro_torch.async_gossip.engine.run_baseline_async`.
 """
 
@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.bilevel_problem import BilevelProblem, grad_of_sum
-from repro_torch.core.c2dfb import _mixing_matrix, price_round
+from repro_torch.core.c2dfb import _mixing_matrix, price_round, pricing_face
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gossip import mix_delta_dense, mix_step_dense
 from repro_torch.core.inner_loop import compress_stacked
@@ -161,11 +161,14 @@ def _mdbo_round_core(
 
 def mdbo_round(
     state: MDBOState, problem: BilevelProblem, topo: Topology, cfg: MDBOConfig,
-    W: torch.Tensor | None = None, fabric=None, round_idx: int = 0,
+    W: torch.Tensor | None = None, fabric=None, round_idx: int = 0, transport=None,
 ) -> tuple[MDBOState, dict]:
     """One MDBO round; ``W`` overrides the static mixing matrix.  ``fabric``
     (a `repro_torch.net.fabric.NetworkFabric`) adds ``wire_bytes`` and
-    ``sim_seconds`` of `mdbo_round_phases`, priced as round ``round_idx``."""
+    ``sim_seconds`` of `mdbo_round_phases`, priced as round ``round_idx``.
+    ``transport`` (a `repro_torch.transport.Transport`) prices the round
+    through the transport's fabric-mirroring face instead, the same keys."""
+    fabric = pricing_face(fabric, transport, topo)
     W_override = W
     W = _mixing_matrix(topo, state.x) if W is None else W
     new_state, metrics = _mdbo_round_core(
@@ -266,11 +269,13 @@ def _madsbo_round_core(
 
 def madsbo_round(
     state: MADSBOState, problem: BilevelProblem, topo: Topology, cfg: MADSBOConfig,
-    W: torch.Tensor | None = None, fabric=None, round_idx: int = 0,
+    W: torch.Tensor | None = None, fabric=None, round_idx: int = 0, transport=None,
 ) -> tuple[MADSBOState, dict]:
     """One MADSBO round; ``W`` overrides the static mixing matrix.
     ``fabric`` adds ``wire_bytes`` and ``sim_seconds`` of
-    `madsbo_round_phases`, priced as round ``round_idx``."""
+    `madsbo_round_phases`, priced as round ``round_idx``; ``transport``
+    as in `mdbo_round`."""
+    fabric = pricing_face(fabric, transport, topo)
     W_override = W
     W = _mixing_matrix(topo, state.x) if W is None else W
     new_state, metrics = _madsbo_round_core(

@@ -21,8 +21,9 @@ run's device, or a source object); draws follow the order written down in
 a telemetry handle ``obs`` and the asynchronous engine's arguments
 (``async_mode`` and the rest, dispatched to
 `repro_torch.async_gossip.engine.run_async`, or with ``compiled=True`` to
-`repro_torch.async_gossip.compiled.run_async_compiled`); the transports wait
-for a later slice of the port.
+`repro_torch.async_gossip.compiled.run_async_compiled`), and a
+``transport`` (`repro_torch.transport`: the simulated one, or the device
+transport that executes every exchange).
 """
 
 from __future__ import annotations
@@ -186,6 +187,7 @@ def c2dfb_round(
     W: torch.Tensor | None = None,
     fabric=None,
     round_idx: int = 0,
+    transport=None,
 ) -> tuple[C2DFBState, dict]:
     """One synchronous outer round.  ``W`` overrides the static mixing
     matrix (a `repro_torch.net.dynamic` schedule's round matrix).
@@ -193,7 +195,10 @@ def c2dfb_round(
     codec-measured ``wire_bytes`` (int) and simulated ``sim_seconds``
     (float) to the round metrics, priced as round ``round_idx``; with a
     ``W`` override only the edges W activates carry traffic.  Measuring
-    the phases draws after the round (see `round_phases`)."""
+    the phases draws after the round (see `round_phases`).  ``transport``
+    (a `repro_torch.transport.Transport`) does the same through the
+    transport's pricing face; ``run(transport=)`` executes the exchanges."""
+    fabric = pricing_face(fabric, transport, topo)
     W_override = W
     W = _mixing_matrix(topo, state.x) if W is None else W
     compressor = cfg.make_compressor()
@@ -205,6 +210,16 @@ def c2dfb_round(
     if fabric is not None:
         price_round(fabric, round_phases(new_state, cfg, fabric.topo, generator), W_override, round_idx, metrics)
     return new_state, metrics
+
+
+def pricing_face(fabric, transport, topo: Topology):
+    """What a round is priced on: ``fabric``, or ``transport`` bound to
+    ``topo`` (a transport mirrors the fabric's pricing API)."""
+    if transport is None:
+        return fabric
+    if fabric is not None:
+        raise ValueError("pass fabric OR transport, not both")
+    return transport.bind(topo)
 
 
 def _host(v):
@@ -360,14 +375,30 @@ def run(
     ``compiled=True`` runs the async engine's compiled runtime
     (`repro_torch.async_gossip.compiled.run_async_compiled`: a scheduler
     replay, then the round bodies replayed from CUDA graphs on a card);
-    without it, ``compiled=True`` raises.  ``transport`` (the transports)
-    is not ported yet and raises a ValueError."""
+    without it, ``compiled=True`` raises.
+
+    ``transport`` (a `repro_torch.transport.Transport`, exclusive with
+    ``fabric``) selects the backend the round's gossip runs on
+    (`repro_torch.transport.engine.run_c2dfb_transport`): a `SimTransport`
+    is this function with ``fabric=transport.fabric``, bit for bit; a
+    `DeviceTransport` EXECUTES every exchange between the ranks of its
+    mesh, carrying the real wire payloads, and meters them with the codec."""
     if transport is not None:
         if fabric is not None:
             raise ValueError("pass fabric OR transport, not both — a transport owns its pricing fabric")
-        raise ValueError(
-            "transport= (simulated and device transports) is not ported yet: "
-            "a later slice ports the transport engine; pass fabric= to price a run"
+        from repro_torch.transport import Transport
+        from repro_torch.transport.engine import run_c2dfb_transport
+
+        if not isinstance(transport, Transport):
+            raise ValueError(
+                f"transport= takes a repro_torch.transport.Transport (SimTransport, DeviceTransport), "
+                f"got {type(transport).__name__}: pass a network fabric as fabric=, or as SimTransport(fabric)"
+            )
+        return run_c2dfb_transport(
+            problem, topo, cfg, x0, y0, T, generator, transport, device=device,
+            schedule=schedule, async_mode=async_mode, staleness_bound=staleness_bound,
+            version_rule=version_rule, ledger=ledger, mixing_damping=mixing_damping,
+            damping_decay=damping_decay, compiled=compiled, obs=obs,
         )
     if async_mode is not None:
         if fabric is None:

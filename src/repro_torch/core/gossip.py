@@ -1,24 +1,41 @@
-"""Gossip mixing (``repro.core.gossip``'s dense engine).
+"""Gossip mixing engines (``repro.core.gossip``'s counterpart).
 
-The consensus operator ``mix_delta(X)[i] = sum_j w_ij (X_j - X_i)`` as a
-node-stacked matmul against (W - I); it works for any graph.  The mixing
-*step* used by the algorithms is ``x <- x + gamma * mix_delta(x)``, i.e.
-x <- (I + gamma (W - I)) x, whose spectral gap is >= gamma * rho (paper
-Proposition 5).  The neighbour-exchange engines come with the transport
-slice of the port.
+Two interchangeable implementations of the consensus operator
+``mix_delta(X)[i] = sum_j w_ij (X_j - X_i)``:
+
+* ``dense`` — node-stacked matmul against (W - I).  Works for any graph;
+  the simulator form.
+* the rank-level engines — what each rank computes from what it RECEIVES.
+  A rank is one row of the node-stacked tensor on the run's device.  For
+  static shift-structured topologies (ring, two-hop, torus) the exchange
+  is a handful of neighbour shifts: "rank r receives from rank r - shift"
+  is ``torch.roll(v, shift, dims=0)``, a device copy of exactly the
+  payload's bytes (the reference's ``lax.ppermute``).  For general graphs
+  every rank gathers every slice (``lax.all_gather``); the gathered table
+  is the same for every rank, so one stacked table serves them all, and
+  rank r mixes with its row of W - I against it.
+
+The mixing *step* used by the algorithms is ``x <- x + gamma * mix_delta(x)``,
+i.e. x <- (I + gamma (W - I)) x, whose spectral gap is >= gamma * rho (paper
+Proposition 5).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.types import Tree, tree_map
+from repro_torch.core.topology import Topology
+from repro_torch.core.types import Tree, tree_leaves, tree_map
+
+
+def w_minus_i(W: torch.Tensor) -> torch.Tensor:
+    """W - I in W's dtype (f32 for the mixing)."""
+    return W - torch.eye(W.shape[0], dtype=W.dtype, device=W.device)
 
 
 def mix_delta_dense(W: torch.Tensor, x: Tree) -> Tree:
     """sum_j w_ij (x_j - x_i) for node-stacked trees (leading axis m)."""
-    eye = torch.eye(W.shape[0], dtype=W.dtype, device=W.device)
-    W_minus_I = W - eye
+    W_minus_I = w_minus_i(W)
 
     def leaf(v):
         flat = v.reshape(v.shape[0], -1).to(torch.float32)
@@ -33,3 +50,63 @@ def mix_step_dense(W: torch.Tensor, gamma, x: Tree) -> Tree:
     """x + gamma * sum_j w_ij (x_j - x_i)."""
     delta = mix_delta_dense(W, x)
     return tree_map(lambda v, d: v + gamma * d, x, delta)
+
+
+# ---------------------------------------------------------------------------
+# rank-level engines
+# ---------------------------------------------------------------------------
+
+
+def shift_ranks(v: torch.Tensor, shift: int) -> torch.Tensor:
+    """What every rank receives from rank ``r - shift``: row r of the result
+    is row ``(r - shift) % m`` of ``v``."""
+    return torch.roll(v, shifts=shift, dims=0)
+
+
+def rows_against_table(W_minus_I: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rank r's row of ``W - I`` against the gathered (m, ...) ``table``, for
+    every r: one batched product whose batch r reads the whole table, as
+    each rank of the reference reads its own gathered copy."""
+    m = table.shape[0]
+    flat = table.reshape(m, -1).to(torch.float32)
+    out = torch.bmm(W_minus_I.unsqueeze(1), flat.unsqueeze(0).expand(m, m, flat.shape[1]))
+    return out.reshape(table.shape)
+
+
+def mix_delta_ppermute(topo: Topology, x: Tree) -> Tree:
+    """Rank-level neighbour difference for shift-structured topologies:
+    sum over the schedule's shifts of w * (received - own), shift by shift
+    in x's dtype, as each rank of the reference accumulates it."""
+    if topo.ppermute_schedule is None:
+        raise ValueError(f"topology {topo.name} has no static ppermute schedule")
+
+    def leaf(v):
+        acc = torch.zeros_like(v)
+        for shift, w in topo.ppermute_schedule:
+            acc = acc + w * (shift_ranks(v, shift) - v)
+        return acc
+
+    return tree_map(leaf, x)
+
+
+def mix_delta_allgather(topo: Topology, x: Tree) -> Tree:
+    """General-graph fallback: every rank gathers every slice and reduces
+    with its row of W - I (in f32, emitted at x's dtype)."""
+    W = torch.as_tensor(topo.W, dtype=torch.float32, device=tree_leaves(x)[0].device)
+    W_minus_I = w_minus_i(W)
+    return tree_map(lambda v: rows_against_table(W_minus_I, v).to(v.dtype), x)
+
+
+def mix_delta_shard(topo: Topology, x: Tree) -> Tree:
+    """mix_delta(x) by the rank-level engine the topology allows: neighbour
+    shifts where it has a schedule, else the gather."""
+    if topo.ppermute_schedule is not None:
+        return mix_delta_ppermute(topo, x)
+    return mix_delta_allgather(topo, x)
+
+
+def mix_step_shard(topo: Topology, gamma, x: Tree) -> Tree:
+    """x + gamma * mix_delta(x) by the rank-level engine (`mix_delta_shard`)."""
+    delta = mix_delta_shard(topo, x)
+    return tree_map(lambda v, d: v + gamma * d, x, delta)
+

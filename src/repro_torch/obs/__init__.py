@@ -1,8 +1,8 @@
 """repro_torch.obs — the telemetry spine (``repro.obs``'s counterpart).
 
 One instrumentation layer the port's runs feed (the synchronous
-`repro_torch.core.c2dfb.run` and the eager async engine; the transports
-come in a later slice), with the reference's record schema, so the two
+`repro_torch.core.c2dfb.run`, the async engine and the device transport's
+``transport-device`` rows), with the reference's record schema, so the two
 packages' JSONL runs compare field for field:
 
 * ``sink``     — `MetricsSink` protocol + `MemorySink` / `JsonlSink`

@@ -14,9 +14,11 @@ both faces of a backend:
 * the **exchange face** — `exchange(payload, compressor, ...)`, one-phase
   message delivery: every node broadcasts its node-stacked payload slice
   to its neighbors and the transport returns the tree as received.
-  `SimTransport` delivers by identity and only prices.  The executing
-  backends (a `torch.distributed` process group) come with the transport
-  engine and are not ported yet.
+  `SimTransport` delivers by identity and only prices;
+  `DeviceTransport` (`repro_torch.transport.device`) serializes each slice
+  with the wire codec (`repro_torch.net.wire`), delivers it to the ranks
+  of its mesh and returns the decoded receipt, so compression error and
+  byte counts come from executed code.
 """
 
 from __future__ import annotations
@@ -64,6 +66,8 @@ class Transport(abc.ABC):
 
     * `repro_torch.transport.sim.SimTransport` — the priced simulation
       (bit-exact with passing the wrapped fabric directly)
+    * `repro_torch.transport.device.DeviceTransport` — in-process
+      execution between the ranks of a node mesh
 
     A transport must be bound to a topology (`bind`) before use; binding
     constructs/validates the internal pricing fabric.

@@ -849,7 +849,7 @@ def _refusals(pb):
         "compiled sync": (lambda: run(compiled=True), "ASYNC runtime's two-phase scan"),
         "compiled baseline": (lambda: peng.run_baseline_async("f2sa", pb.problem, pt, None, pb.x0, pb.y0, 1, fab,
                                                               compiled=True, device="cpu"), "unknown async baseline"),
-        "transport": (lambda: run(transport=fab), "not ported yet"),
+        "transport": (lambda: run(transport=fab), "transport= takes a repro_torch.transport.Transport"),
         "unknown damping": (lambda: run(async_mode="full", fabric=fab, mixing_damping="linear"),
                             "unknown mixing_damping"),
         "unknown payload": (lambda: peng.run_async(pb.problem, pt, cfg, pb.x0, pb.y0, 1, fabric=fab,

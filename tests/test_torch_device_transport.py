@@ -1,0 +1,191 @@
+"""The port's DeviceTransport against the reference's OWN DeviceTransport,
+run live once in a subprocess with 8 forced host devices (one node a
+device), as tests/test_transport.py runs it:
+
+* ring (neighbour shifts) and star (all-gather), dense top-k and dense and
+  fused block top-k: states within rtol 1e-4 / atol 1e-6; every node's
+  executed bytes on every step and round, ``wire_bytes`` and
+  ``measured_bytes`` equal;
+* ``compute_flops`` / ``hbm_bytes`` of the ``transport-device`` rows: the
+  reference counts the SPMD module of one mesh device (one node); the port,
+  whose mesh holds every rank on one device, gives one rank's share of its
+  round and equals it on the dense runs.  On the fused runs the reference
+  also counts the one-hot matmuls of its interpret-mode pack and unpack,
+  which the port's kernels do not do; the port's fused count is its dense
+  count (ROADMAP §C);
+* the ``BENCH_transport.json`` gate config (m = 4, K = 4, T = 3, n = 200,
+  p = 30, ring, wan, top-k 0.3): the port's sim and device ``wire_bytes``
+  equal the reference's live figures (the committed 147,456 and 147,696
+  came from jax 0.4.37)."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from repro_torch.core import topology as ptopo
+from repro_torch.core.c2dfb import C2DFBConfig, run
+from repro_torch.core.convert import from_numpy, to_numpy
+from repro_torch.data import bilevel_tasks as ptasks
+from repro_torch.net import make_fabric
+from repro_torch.obs import MemorySink
+from repro_torch.transport import DeviceTransport, SimTransport, run_c2dfb_transport
+
+RTOL, ATOL = 1e-4, 1e-6
+M, T = 4, 3
+TASK = dict(m=M, n=80, p=12, c=3, h=0.5, seed=0)
+CFGS = {
+    "topk": dict(K=3, compressor="topk", comp_ratio=0.3, gamma_in=0.3, eta_in=0.3),
+    "block": dict(K=3, compressor="block_topk", comp_ratio=0.3, gamma_in=0.3, eta_in=0.3, comp_block=128),
+}
+RUNS = [(topo, cfg, fused) for topo in ("ring", "star") for cfg, fused in (("topk", False), ("block", False), ("block", True))]
+GATE_TASK = dict(m=M, n=200, p=30, c=5, h=0.8, seed=0)
+GATE_CFG = dict(lam=10.0, eta_out=0.3, gamma_out=0.5, eta_in=0.3, gamma_in=0.3, K=4, compressor="topk", comp_ratio=0.3)
+
+SCRIPT = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+import json, sys
+import jax
+import numpy as np
+jax.config.update("jax_default_matmul_precision", "highest")
+from repro.core.c2dfb import C2DFBConfig, run
+from repro.core.topology import make_topology, ring
+from repro.data.bilevel_tasks import coefficient_tuning_task
+from repro.net import make_fabric
+from repro.obs import MemorySink
+from repro.transport import DeviceTransport, SimTransport
+from repro.transport.engine import run_c2dfb_transport
+
+spec = json.loads(sys.argv[1])
+key = jax.random.PRNGKey(0)
+b = coefficient_tuning_task(**spec["task"])
+out = {"x0": np.asarray(b.x0).tolist(), "y0": np.asarray(b.y0).tolist(), "runs": {}}
+for topo_name, cfg_name, fused in spec["runs"]:
+    topo = make_topology(topo_name, spec["task"]["m"])
+    sink = MemorySink()
+    st, mets = run_c2dfb_transport(b.problem, topo, C2DFBConfig(**spec["cfgs"][cfg_name]), b.x0, b.y0, spec["T"], key,
+                                   DeviceTransport(fused=fused), obs=sink, return_payloads=True)
+    rows = sink.rows(kind="round")
+    out["runs"][f"{topo_name}/{cfg_name}/{fused}"] = {
+        "state": {f: np.asarray(v).tolist() for f, v in
+                  [("x", st.x), ("s_x", st.s_x), ("y", st.inner_y.d), ("y_hat", st.inner_y.d_hat),
+                   ("z", st.inner_z.d), ("z_s_hat", st.inner_z.s_hat)]},
+        "wire_bytes": [int(v) for v in mets["wire_bytes"]],
+        "measured_bytes": [int(v) for v in mets["measured_bytes"]],
+        "hypergrad_norm": [float(v) for v in mets["hypergrad_norm"]],
+        "compute_flops": [r["compute_flops"] for r in rows],
+        "hbm_bytes": [r["hbm_bytes"] for r in rows],
+        "node_compute_flops": [r["compute_flops"] for r in sink.rows(kind="node")],
+        "node_bytes": [[r["node_bytes"] for r in sink.rows(kind="node") if r["round"] == t] for t in range(spec["T"])],
+        "phase_node_bytes": [{k: list(v) for k, v in pl["node_bytes"].items()} for pl in mets["payloads"]],
+        "bytes_by_stream": [r["bytes_by_stream"] for r in rows],
+    }
+g = coefficient_tuning_task(**spec["gate_task"])
+out["gate_x0"], out["gate_y0"] = np.asarray(g.x0).tolist(), np.asarray(g.y0).tolist()
+gate = {}
+for name in ("sim", "device"):
+    tr = SimTransport(make_fabric(ring(4), profile="wan", seed=0)) if name == "sim" else DeviceTransport(link="wan", seed=0)
+    _, mets = run(g.problem, ring(4), C2DFBConfig(**spec["gate_cfg"]), g.x0, g.y0, T=3, key=key, transport=tr)
+    gate[name] = [int(v) for v in mets["wire_bytes"]]
+out["gate"] = gate
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's device runs, live."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src")] + env.get("PYTHONPATH", "").split(os.pathsep)
+    )
+    spec = dict(task=TASK, cfgs=CFGS, runs=RUNS, T=T, gate_task=GATE_TASK, gate_cfg=GATE_CFG)
+    res = subprocess.run(
+        [sys.executable, "-c", SCRIPT, json.dumps(spec)], capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _bundle(task, x0, y0):
+    b = ptasks.coefficient_tuning_task(**task, device="cpu")
+    return dataclasses.replace(
+        b, x0=from_numpy(np.asarray(x0, np.float32)), y0=from_numpy(np.asarray(y0, np.float32))
+    )
+
+
+@pytest.fixture(scope="module")
+def port(reference):
+    b = _bundle(TASK, reference["x0"], reference["y0"])
+    out = {}
+    for topo_name, cfg_name, fused in RUNS:
+        sink = MemorySink()
+        st, mets = run_c2dfb_transport(
+            b.problem, ptopo.make_topology(topo_name, M), C2DFBConfig(**CFGS[cfg_name]), b.x0, b.y0, T, None,
+            DeviceTransport(fused=fused), device="cpu", obs=sink, return_payloads=True,
+        )
+        out[f"{topo_name}/{cfg_name}/{fused}"] = (st, mets, sink)
+    return out
+
+
+NAMES = [f"{t}/{c}/{f}" for t, c, f in RUNS]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_states_match_the_reference_device_run(reference, port, name):
+    st, mets, _ = port[name]
+    want = reference["runs"][name]
+    got = dict(x=st.x, s_x=st.s_x, y=st.inner_y.d, y_hat=st.inner_y.d_hat, z=st.inner_z.d, z_s_hat=st.inner_z.s_hat)
+    for f, v in got.items():
+        np.testing.assert_allclose(to_numpy(v), np.asarray(want["state"][f]), rtol=RTOL, atol=ATOL, err_msg=f)
+    np.testing.assert_allclose(mets["hypergrad_norm"], want["hypergrad_norm"], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_executed_bytes_equal_the_reference(reference, port, name):
+    _, mets, sink = port[name]
+    want = reference["runs"][name]
+    assert [int(v) for v in mets["wire_bytes"]] == want["wire_bytes"]
+    assert [int(v) for v in mets["measured_bytes"]] == want["measured_bytes"]
+    nodes = sink.rows(kind="node")
+    assert [[r["node_bytes"] for r in nodes if r["round"] == t] for t in range(T)] == want["node_bytes"]
+    # every message's node bytes, phase by phase (2 outer + 4K inner a round)
+    got = [{k: list(v) for k, v in pl["node_bytes"].items()} for pl in mets["payloads"]]
+    assert got == want["phase_node_bytes"] and len(got[0]) == 2 + 4 * CFGS["topk"]["K"]
+    assert [r["bytes_by_stream"] for r in sink.rows(kind="round")] == want["bytes_by_stream"]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_compute_counts_of_the_device_rows(reference, port, name):
+    """Dense runs: the reference's counts of one mesh device's module.  Fused
+    runs: the port counts what its dense run counts (B2 and B3 multiply
+    nothing), the reference more (its interpret-mode one-hot matmuls)."""
+    _, _, sink = port[name]
+    rows, nodes = sink.rows(kind="round"), sink.rows(kind="node")
+    want = reference["runs"][name]
+    dense = reference["runs"][name.replace("/True", "/False")]
+    assert [r["compute_flops"] for r in rows] == dense["compute_flops"]
+    assert [r["hbm_bytes"] for r in rows] == dense["hbm_bytes"]
+    assert [r["compute_flops"] for r in nodes] == dense["node_compute_flops"]
+    if name.endswith("/True"):
+        assert want["compute_flops"][0] > dense["compute_flops"][0]
+        assert want["hbm_bytes"][0] > dense["hbm_bytes"][0]
+    else:
+        assert [r["compute_flops"] for r in rows] == want["compute_flops"]
+
+
+def test_gate_config_wire_bytes_equal_the_reference(reference):
+    b = _bundle(GATE_TASK, reference["gate_x0"], reference["gate_y0"])
+    topo = ptopo.ring(M)
+    got = {}
+    for name in ("sim", "device"):
+        tr = SimTransport(make_fabric(topo, profile="wan", seed=0)) if name == "sim" else DeviceTransport(link="wan", seed=0)
+        _, mets = run(b.problem, topo, C2DFBConfig(**GATE_CFG), b.x0, b.y0, T=3, device="cpu", transport=tr)
+        got[name] = [int(v) for v in mets["wire_bytes"]]
+    assert got == reference["gate"]
