@@ -190,15 +190,25 @@ def busy_us(events) -> float:
 
 def device_ms(fn, iters: int = 20, warmup: int = 3):
     """Mean device milliseconds a call: the summed duration of the device
-    activity the profiler (CUPTI) saw over ``iters`` calls; None when it saw
-    none."""
+    activity the profiler (CUPTI) saw over ``iters`` calls.  None when it saw
+    none, or when its records are incomplete: every activity of one
+    profiled call must appear exactly ``iters`` times as often over the
+    ``iters`` calls, since a sum over a profiler that dropped records
+    under-reports the time."""
+    import collections
+
     for _ in range(warmup):
         fn()
+    one, _, _ = device_window(fn, 1)
     events, _, _ = device_window(fn, iters)
+    per_call = collections.Counter(e.name for e in one)
+    seen = collections.Counter(e.name for e in events)
+    complete = bool(per_call) and seen == collections.Counter({n: c * iters for n, c in per_call.items()})
     us = sum(e.time_range.elapsed_us() for e in events)
-    print(f"[timer] {len(events)} device activities over {iters} calls: "
+    print(f"[timer] {len(events)} device activities over {iters} calls, {sum(per_call.values())} in one "
+          f"({'complete' if complete else 'INCOMPLETE: CUDA events instead'}): "
           f"{sorted({e.name[:40] for e in events})[:4]}")
-    return us / 1e3 / iters if us > 0 else None
+    return us / 1e3 / iters if complete and us > 0 else None
 
 
 def timed(fn, iters: int = 20, warmup: int = 3) -> dict:
@@ -1939,8 +1949,9 @@ def phase_transport(dev, bundle, main_mets) -> dict:
 
     (c) The small config, card against host (phase_transport_small).
 
-    (d), B2 and B3 timed at (a)'s stacked shapes, runs with phase 3
-    (transport_kernel_times), before anything else has run the profiler.
+    (d), B2 and B3 timed at (a)'s stacked shapes, runs first in phase 3
+    (transport_kernel_times); `device_ms` takes CUDA events instead of the
+    profiler's sum wherever the profiler's records are incomplete.
 
     Returns the launch counts of B1, B2 and B3 in (a) and of B4 in (b)."""
     from repro_torch.core.c2dfb import C2DFBConfig
@@ -2087,8 +2098,9 @@ def main() -> int:
     check(ptxas and not any(st or ld for _, st, ld in ptxas.values()), "a kernel spills registers (or ptxas said nothing)")
 
     # 3. kernels at main-path shapes (and B2 and B3 at phase 11's stacked shapes)
+    stacked = transport_kernel_times(dev)
     kernels = phase_kernels(dev)
-    for name, entry in transport_kernel_times(dev).items():
+    for name, entry in stacked.items():
         kernels[name]["transport"] = entry
     for entry, fn in [(kernels[n], f) for n, f in MAIN_INSTANCES.items()] + [
         (kernels["quantize"]["bf16"], QUANT_BF16_INSTANCE)

@@ -34,10 +34,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.bilevel_problem import BilevelProblem, grad_of_sum
-from repro_torch.core.c2dfb import _mixing_matrix, price_round, pricing_face
+from repro_torch.core.c2dfb import _mixing_matrix, price_round
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gossip import mix_delta_dense, mix_step_dense
-from repro_torch.core.inner_loop import compress_stacked
+from repro_torch.core.inner_loop import compress_stacked, pricing_face
 from repro_torch.core.topology import Topology
 from repro_torch.core.types import (
     Tree,

@@ -46,6 +46,7 @@ from repro_torch.core.inner_loop import (
     inner_message_bytes,
     inner_round_phases,
     inner_wire_bytes_per_round,
+    pricing_face,
     refresh_tracker,
 )
 from repro_torch.core.topology import Topology
@@ -210,16 +211,6 @@ def c2dfb_round(
     if fabric is not None:
         price_round(fabric, round_phases(new_state, cfg, fabric.topo, generator), W_override, round_idx, metrics)
     return new_state, metrics
-
-
-def pricing_face(fabric, transport, topo: Topology):
-    """What a round is priced on: ``fabric``, or ``transport`` bound to
-    ``topo`` (a transport mirrors the fabric's pricing API)."""
-    if transport is None:
-        return fabric
-    if fabric is not None:
-        raise ValueError("pass fabric OR transport, not both")
-    return transport.bind(topo)
 
 
 def _host(v):

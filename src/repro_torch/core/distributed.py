@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gossip import mix_delta_shard
-from repro_torch.core.inner_loop import InnerState
+from repro_torch.core.inner_loop import InnerState, inner_apply
 from repro_torch.core.topology import Topology
 from repro_torch.core.types import Tree, tree_map
 
@@ -41,23 +41,13 @@ def inner_step_shard(
     gamma: float,
     eta: float,
 ) -> InnerState:
-    """One Algorithm-2 step on every rank: mix the received references,
-    descend, compress and apply this rank's residuals.  ``grad_fn`` maps
-    the ranks' stacked iterates to their stacked gradients (each rank's
-    from its own data shard)."""
-    mix_d = mix_delta_shard(topo, state.d_hat)
-    d_new = tree_map(lambda d, md, s: d + gamma * md - eta * s, state.d, mix_d, state.s)
-    q_d = compress_local(compressor, generator, tree_map(torch.sub, d_new, state.d_hat))
-    d_hat_new = tree_map(torch.add, state.d_hat, q_d)
-
-    g_new = grad_fn(d_new)
-    mix_s = mix_delta_shard(topo, state.s_hat)
-    s_new = tree_map(
-        lambda s, ms, gn, gp: s + gamma * ms + gn - gp, state.s, mix_s, g_new, state.g_prev
-    )
-    q_s = compress_local(compressor, generator, tree_map(torch.sub, s_new, state.s_hat))
-    s_hat_new = tree_map(torch.add, state.s_hat, q_s)
-    return InnerState(d=d_new, d_hat=d_hat_new, s=s_new, s_hat=s_hat_new, g_prev=g_new)
+    """One Algorithm-2 step on every rank: `inner_loop.inner_apply` with the
+    rank-level mixes of the references and rank-local compression.
+    ``grad_fn`` maps the ranks' stacked iterates to their stacked gradients
+    (each rank's from its own data shard)."""
+    mixes = mix_delta_shard(topo, state.d_hat), mix_delta_shard(topo, state.s_hat)
+    new_state, _ = inner_apply(state, generator, grad_fn, compressor, gamma, eta, *mixes, compress=compress_local)
+    return new_state
 
 
 def make_sharded_inner_loop(

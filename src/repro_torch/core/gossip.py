@@ -15,6 +15,10 @@ Two interchangeable implementations of the consensus operator
   is the same for every rank, so one stacked table serves them all, and
   rank r mixes with its row of W - I against it.
 
+Every engine mixes in f32 and emits at the leaf's dtype.  (The reference's
+``mix_delta_ppermute`` accumulates at the leaf's dtype, its device
+transport in f32; the two agree for f32 leaves.)
+
 The mixing *step* used by the algorithms is ``x <- x + gamma * mix_delta(x)``,
 i.e. x <- (I + gamma (W - I)) x, whose spectral gap is >= gamma * rho (paper
 Proposition 5).
@@ -63,6 +67,11 @@ def shift_ranks(v: torch.Tensor, shift: int) -> torch.Tensor:
     return torch.roll(v, shifts=shift, dims=0)
 
 
+def shift_tree(tree: Tree, shift: int) -> Tree:
+    """`shift_ranks` on every leaf of a node-stacked tree."""
+    return tree_map(lambda v: shift_ranks(v, shift), tree)
+
+
 def rows_against_table(W_minus_I: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Rank r's row of ``W - I`` against the gathered (m, ...) ``table``, for
     every r: one batched product whose batch r reads the whole table, as
@@ -73,28 +82,42 @@ def rows_against_table(W_minus_I: torch.Tensor, table: torch.Tensor) -> torch.Te
     return out.reshape(table.shape)
 
 
+def mix_received(schedule, received: tuple, own: Tree) -> Tree:
+    """Each rank's neighbour difference from what it received, one tree a
+    schedule shift: sum of w * (received - own), shift by shift in f32
+    (the reference's per-rank accumulation), emitted at own's dtype."""
+
+    def leaf(o, *rs):
+        of = o.to(torch.float32)
+        acc = torch.zeros_like(of)
+        for (_, w), r in zip(schedule, rs):
+            acc = acc + w * (r.to(torch.float32) - of)
+        return acc.to(o.dtype)
+
+    return tree_map(leaf, own, *received)
+
+
+def mix_gathered(W_minus_I: torch.Tensor, table: Tree, own: Tree) -> Tree:
+    """Each rank's row of W - I against the gathered ``table`` (f32),
+    emitted at own's dtype."""
+    return tree_map(lambda t, o: rows_against_table(W_minus_I, t).to(o.dtype), table, own)
+
+
 def mix_delta_ppermute(topo: Topology, x: Tree) -> Tree:
     """Rank-level neighbour difference for shift-structured topologies:
-    sum over the schedule's shifts of w * (received - own), shift by shift
-    in x's dtype, as each rank of the reference accumulates it."""
+    every rank receives its neighbours' slices by the schedule's shifts and
+    mixes them (`mix_received`)."""
     if topo.ppermute_schedule is None:
         raise ValueError(f"topology {topo.name} has no static ppermute schedule")
-
-    def leaf(v):
-        acc = torch.zeros_like(v)
-        for shift, w in topo.ppermute_schedule:
-            acc = acc + w * (shift_ranks(v, shift) - v)
-        return acc
-
-    return tree_map(leaf, x)
+    schedule = topo.ppermute_schedule
+    return mix_received(schedule, tuple(shift_tree(x, s) for s, _ in schedule), x)
 
 
 def mix_delta_allgather(topo: Topology, x: Tree) -> Tree:
     """General-graph fallback: every rank gathers every slice and reduces
-    with its row of W - I (in f32, emitted at x's dtype)."""
+    with its row of W - I (`mix_gathered`)."""
     W = torch.as_tensor(topo.W, dtype=torch.float32, device=tree_leaves(x)[0].device)
-    W_minus_I = w_minus_i(W)
-    return tree_map(lambda v: rows_against_table(W_minus_I, v).to(v.dtype), x)
+    return mix_gathered(w_minus_i(W), x, x)
 
 
 def mix_delta_shard(topo: Topology, x: Tree) -> Tree:

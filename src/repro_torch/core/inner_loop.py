@@ -73,12 +73,13 @@ def refresh_tracker(state: InnerState, grad_fn) -> InnerState:
 
 
 def inner_transmit(
-    compressor: Compressor, generator, value: Tree, ref: Tree
+    compressor: Compressor, generator, value: Tree, ref: Tree, compress=compress_stacked
 ) -> Tree:
     """The transmit half of a step: the compressed residual ``Q(value - ref)``,
-    the per-edge message payload."""
+    the per-edge message payload.  ``compress(compressor, generator, tree)``
+    applies Q to a node-stacked tree (`compress_stacked` by default)."""
     resid = tree_map(torch.sub, value, ref)
-    return compress_stacked(compressor, generator, resid)
+    return compress(compressor, generator, resid)
 
 
 def inner_apply(
@@ -90,14 +91,16 @@ def inner_apply(
     eta: float,
     mix_d: Tree,
     mix_s: Tree,
+    compress=compress_stacked,
 ) -> tuple[InnerState, tuple[Tree, Tree]]:
     """One inner step with the MIXING DELTAS supplied by the caller; also
-    returns the two transmitted messages ``(q_d, q_s)``."""
+    returns the two transmitted messages ``(q_d, q_s)``.  ``compress`` is
+    `inner_transmit`'s (the rank-level engine compresses rank by rank)."""
     # (1) model update: mix on REFERENCES, descend along tracker
     d_new = tree_map(lambda d, md, s: d + gamma * md - eta * s, state.d, mix_d, state.s)
 
     # (2) reference update via compressed residual (this is the transmission)
-    q_d = inner_transmit(compressor, generator, d_new, state.d_hat)
+    q_d = inner_transmit(compressor, generator, d_new, state.d_hat, compress)
     d_hat_new = tree_map(torch.add, state.d_hat, q_d)
 
     # (3) tracker update: mix on tracker references + gradient delta
@@ -107,7 +110,7 @@ def inner_apply(
     )
 
     # (4) tracker reference update via compressed residual
-    q_s = inner_transmit(compressor, generator, s_new, state.s_hat)
+    q_s = inner_transmit(compressor, generator, s_new, state.s_hat, compress)
     s_hat_new = tree_map(torch.add, state.s_hat, q_s)
 
     new_state = InnerState(d=d_new, d_hat=d_hat_new, s=s_new, s_hat=s_hat_new, g_prev=g_new)
@@ -165,10 +168,7 @@ def inner_loop(
     measurement draws after the K steps' draws: the d message, then the s
     message, where the reference draws them from ``split(key)`` of the
     loop's own key."""
-    if transport is not None:
-        if fabric is not None:
-            raise ValueError("pass fabric OR transport, not both")
-        fabric = transport  # a Transport mirrors the fabric pricing API
+    fabric = pricing_face(fabric, transport)
     if mixer is None:
         mixer = lambda st: (mix_delta_dense(W, st.d_hat), mix_delta_dense(W, st.s_hat))  # noqa: E731
     msg_bytes = None
@@ -191,6 +191,17 @@ def inner_loop(
         metrics["wire_bytes"] = rep["wire_bytes"]
         metrics["sim_seconds"] = rep["sim_seconds"]
     return state, metrics
+
+
+def pricing_face(fabric, transport, topo=None):
+    """What a loop or round is priced on: ``fabric``, or ``transport`` (a
+    transport mirrors the fabric's pricing API), bound to ``topo`` where
+    one is given."""
+    if transport is None:
+        return fabric
+    if fabric is not None:
+        raise ValueError("pass fabric OR transport, not both")
+    return transport if topo is None else transport.bind(topo)
 
 
 def inner_message_bytes(

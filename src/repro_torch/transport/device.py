@@ -60,7 +60,7 @@ from repro_torch import resolve_device
 from repro_torch.core import compression as C
 from repro_torch.core.bilevel_problem import BilevelProblem
 from repro_torch.core.compression import Compressor
-from repro_torch.core.gossip import rows_against_table, shift_ranks, w_minus_i
+from repro_torch.core.gossip import mix_delta_shard, mix_gathered, mix_received, shift_tree, w_minus_i
 from repro_torch.core.inner_loop import InnerState, inner_transmit, refresh_tracker
 from repro_torch.core.topology import Topology
 from repro_torch.core.types import Tree, tree_leaves, tree_map, tree_unflatten
@@ -78,15 +78,14 @@ class NodeMesh:
 
     m: int
     device: torch.device
-    axis: str = "nodes"
 
 
-def mesh_for_nodes(m: int, device: str | torch.device | None = None, axis: str = "nodes") -> NodeMesh:
+def mesh_for_nodes(m: int, device: str | torch.device | None = None) -> NodeMesh:
     """A mesh of ``m`` ranks on ``device`` (``cuda`` unless the caller
     passes ``device="cpu"``)."""
     if m < 1:
         raise ValueError(f"a mesh needs at least one rank, got {m}")
-    return NodeMesh(m=int(m), device=resolve_device(device), axis=axis)
+    return NodeMesh(m=int(m), device=resolve_device(device))
 
 
 def _on(tree, device):
@@ -205,25 +204,15 @@ class _PpermuteGossiper:
     def __init__(self, topo: Topology):
         self.schedule = topo.ppermute_schedule
 
-    def _shift(self, tree: Tree, shift: int) -> Tree:
-        return tree_map(lambda v: shift_ranks(v, shift), tree)
-
     def init(self, value: Tree) -> tuple:
-        return tuple(self._shift(value, s) for s, _ in self.schedule)
+        return tuple(shift_tree(value, s) for s, _ in self.schedule)
 
     def mix(self, copies: tuple, own: Tree) -> Tree:
-        def leaf(o, *cs):
-            of = o.to(torch.float32)
-            acc = torch.zeros_like(of)
-            for (_, w), c in zip(self.schedule, cs):
-                acc = acc + w * (c.to(torch.float32) - of)
-            return acc.to(o.dtype)
-
-        return tree_map(leaf, own, *copies)
+        return mix_received(self.schedule, copies, own)
 
     def push(self, copies: tuple, q_own: Tree) -> tuple:
         return tuple(
-            tree_map(torch.add, c, self._shift(q_own, s)) for (s, _), c in zip(self.schedule, copies)
+            tree_map(torch.add, c, shift_tree(q_own, s)) for (s, _), c in zip(self.schedule, copies)
         )
 
     def push_packed(self, copies: tuple, packed, block: int) -> tuple:
@@ -233,7 +222,7 @@ class _PpermuteGossiper:
         vals_t, idx_t = packed
         out = []
         for (s, _), c in zip(self.schedule, copies):
-            q = _unpack_like(self._shift(vals_t, s), self._shift(idx_t, s), c, block)
+            q = _unpack_like(shift_tree(vals_t, s), shift_tree(idx_t, s), c, block)
             out.append(tree_map(torch.add, c, q))
         return tuple(out)
 
@@ -250,7 +239,7 @@ class _AllGatherGossiper:
         return value
 
     def mix(self, table: Tree, own: Tree) -> Tree:
-        return tree_map(lambda t, o: rows_against_table(self.W_minus_I, t).to(o.dtype), table, own)
+        return mix_gathered(self.W_minus_I, table, own)
 
     def push(self, table: Tree, q_own: Tree) -> Tree:
         return tree_map(torch.add, table, q_own)
@@ -360,7 +349,7 @@ def make_device_round(
 
     def round_fn(x, s_x, u_prev, inner_y, inner_z, generator):
         # ---- outer model update (dense broadcast + tracked descent) --------
-        mix_x = gossip.mix(gossip.init(x), x)
+        mix_x = mix_delta_shard(topo, x)
         x_new = tree_map(lambda x_, mx, s: x_ + cfg.gamma_out * mx - cfg.eta_out * s, x, mix_x, s_x)
 
         # ---- inner loops on the new x ---------------------------------------
@@ -379,7 +368,7 @@ def make_device_round(
 
         # ---- hypergradient + tracker update ---------------------------------
         u_new = problem.hyper_grad(x_new, inner_y.d, inner_z.d, cfg.lam)
-        mix_s = gossip.mix(gossip.init(s_x), s_x)
+        mix_s = mix_delta_shard(topo, s_x)
         s_x_new = tree_map(
             lambda s, ms, un, up: s + cfg.gamma_out * ms + un - up, s_x, mix_s, u_new, u_prev
         )
@@ -405,9 +394,6 @@ class DeviceTransport(Transport):
                  no pretend latency; "wan" / "geo" ask what this executed
                  traffic would cost on that wire)
     straggler  : `StragglerModel` or kind string for the pricing fabric
-    verify     : check decode(encode(payload)) message for message (exact;
-                 KernelQuant to rtol 1e-5).  Leave on: it is the backend's
-                 deployment-correctness assertion.
     fused      : run the FUSED round (`make_device_round(fused=True)`):
                  residuals are compressed and packed on the device and the
                  exchanges move the records; block-sparse compressors only.
@@ -426,15 +412,11 @@ class DeviceTransport(Transport):
         compute_s: float = 0.0,
         seed: int = 0,
         trace=None,
-        axis: str = "nodes",
-        verify: bool = True,
         fused: bool = False,
         chunk: int | None = None,
         **straggler_kw,
     ):
         self.mesh = mesh
-        self.axis = axis if mesh is None else mesh.axis
-        self.verify = verify
         if fused and chunk is None:
             chunk = 1 << 16
         if chunk is not None and chunk <= 0:
@@ -463,7 +445,7 @@ class DeviceTransport(Transport):
                 )
             return self
         if self.mesh is None:
-            self.mesh = mesh_for_nodes(topo.m, device, self.axis)
+            self.mesh = mesh_for_nodes(topo.m, device)
         if self.mesh.m != topo.m:
             raise ValueError(
                 f"mesh has {self.mesh.m} ranks but the topology has {topo.m} "
@@ -509,18 +491,17 @@ class DeviceTransport(Transport):
                 payload = codec.encode(a[i].reshape(-1))
                 nbytes += len(payload)
                 dec = codec.decode(payload).reshape(a[i].shape)
-                if self.verify:
-                    sent = a[i].astype(np.float32)
-                    if exact:
-                        if not np.array_equal(dec, sent):
-                            raise AssertionError(
-                                f"wire codec round-trip mismatch on node {i}, leaf {li}: the "
-                                "executed payload did not survive encode->decode bit-exactly"
-                            )
-                    elif not np.allclose(dec, sent, rtol=1e-5, atol=0):
+                sent = a[i].astype(np.float32)
+                if exact:
+                    if not np.array_equal(dec, sent):
                         raise AssertionError(
-                            f"KernelQuant wire round-trip drifted past 1-ulp tolerance on node {i}, leaf {li}"
+                            f"wire codec round-trip mismatch on node {i}, leaf {li}: the "
+                            "executed payload did not survive encode->decode bit-exactly"
                         )
+                elif not np.allclose(dec, sent, rtol=1e-5, atol=0):
+                    raise AssertionError(
+                        f"KernelQuant wire round-trip drifted past 1-ulp tolerance on node {i}, leaf {li}"
+                    )
                 out[li][i] = dec
             return nbytes
 
@@ -570,14 +551,13 @@ class DeviceTransport(Transport):
         def node(i):
             slc = [a[i] for a in arrs]
             payloads = codec.encode_tree_chunked(slc, self.chunk)
-            if self.verify:
-                got = np.concatenate([codec.decode(p) for p in payloads])
-                sent = np.concatenate([np.asarray(a, np.float32).reshape(-1) for a in slc])
-                if not np.array_equal(got, sent):
-                    raise AssertionError(
-                        f"chunked wire round-trip mismatch on node {i}: the executed "
-                        "payload did not survive encode->decode bit-exactly"
-                    )
+            got = np.concatenate([codec.decode(p) for p in payloads])
+            sent = np.concatenate([np.asarray(a, np.float32).reshape(-1) for a in slc])
+            if not np.array_equal(got, sent):
+                raise AssertionError(
+                    f"chunked wire round-trip mismatch on node {i}: the executed "
+                    "payload did not survive encode->decode bit-exactly"
+                )
             return sum(len(p) for p in payloads)
 
         return tuple(_per_node(node, arrs[0].shape[0]))
@@ -593,14 +573,13 @@ class DeviceTransport(Transport):
             vlist = [v[i] for v in vals_leaves]
             ilist = [ix[i] for ix in idx_leaves]
             payloads = wire.encode_packed_records_chunked(vlist, ilist, leaf_sizes, block, chunk)
-            if self.verify:
-                dec = np.concatenate([wire.SparseCodec().decode(p) for p in payloads])
-                ref = wire.scatter_packed_records(vlist, ilist, leaf_sizes, block)
-                if not np.array_equal(dec, ref):
-                    raise AssertionError(
-                        f"packed-record wire round-trip mismatch on node {i}: decoded "
-                        "chunks disagree with the scattered records"
-                    )
+            dec = np.concatenate([wire.SparseCodec().decode(p) for p in payloads])
+            ref = wire.scatter_packed_records(vlist, ilist, leaf_sizes, block)
+            if not np.array_equal(dec, ref):
+                raise AssertionError(
+                    f"packed-record wire round-trip mismatch on node {i}: decoded "
+                    "chunks disagree with the scattered records"
+                )
             return sum(len(p) for p in payloads)
 
         return tuple(_per_node(node, vals_leaves[0].shape[0]))

@@ -347,6 +347,33 @@ def test_shard_gossip_matches_dense_and_the_reference(name):
     np.testing.assert_allclose(mix_step_shard(pt, 0.7, xt).numpy(), np.asarray(jstep(Wj, 0.7, jnp.asarray(x))), atol=1e-5)
 
 
+@pytest.mark.parametrize("name", ["ring", "star"])
+def test_rank_engines_mix_bf16_leaves_in_f32(name):
+    """One dtype rule for every rank-level engine: the mixing arithmetic in
+    f32, emitted at the leaf's dtype (the reference's device-transport
+    gossiper's rule, ROADMAP §C); the device gossipers mix by the same
+    functions as `mix_delta_shard`."""
+    from repro_torch.core.gossip import mix_delta_shard
+    from repro_torch.transport.device import _gossiper
+
+    m = 8
+    pt = ptopo.make_topology(name, m)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(m, 33)).astype(np.float32)).to(torch.bfloat16)
+    got = mix_delta_shard(pt, x)
+    assert got.dtype == torch.bfloat16
+    xf = x.to(torch.float32)
+    if pt.ppermute_schedule is not None:
+        want = torch.zeros_like(xf)
+        for shift, w in pt.ppermute_schedule:
+            want = want + w * (torch.roll(xf, shift, 0) - xf)
+        assert torch.equal(got, want.to(torch.bfloat16))
+    else:
+        want = (torch.as_tensor(pt.W, dtype=torch.float32) - torch.eye(m)) @ xf
+        np.testing.assert_allclose(got.float().numpy(), want.numpy(), rtol=1e-2, atol=1e-2)
+    g = _gossiper(pt, "cpu")
+    assert torch.equal(g.mix(g.init(x), x), got)
+
+
 def test_sharded_inner_loop_matches_the_simulators():
     """tests/test_distributed.py's parity: identity exact (< 1e-5) against
     the reference's node-stacked loop, consensus after 400 steps, top-k
