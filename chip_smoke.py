@@ -15,7 +15,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    bf16, on tiles and on node-stacked leaves read in place), timed (device
    time by torch.profiler, call time by CUDA events) beside its memory
    bound, a copy_ of the same bytes and, where one exists, a PyTorch
-   library call computing the same function;
+   library call computing the same function; the unpack kernel's tile and
+   leaf entries on edge records (duplicates, sentinels, negative and
+   out-of-range indices, -0.0 and NaN values, -0.0 bases) at blocks 128 to
+   4,096 and 12,288, f32 and bf16 leaves, d % block != 0 and d % 4 != 0,
+   with and without a base;
 4. main paths: synchronous C2DFB on the 20 Newsgroups-width coefficient-
    tuning task (p = 101,631, c = 20, m = 10 nodes on a ring, label skew 0.8,
    n = 2,000 synthetic documents), K = 10, T = 3 rounds, once with
@@ -80,7 +84,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the hypergradient-norm gap to phase 4's run() printed; kernel_quant on a
    torch.Generator, T = 2 (B4 80, the closed-form bytes); on m = 4, ring and
    star, dense and fused, and make_sharded_inner_loop, card against host.
-   B2 and B3 are timed at the exchange's stacked shapes with phase 3.
+   B2 and B3 (its tile entry against zeros().scatter_add_, its leaf entry
+   onto a base against today's three calls: the tile, the slice and the
+   add) are held bit for bit and timed at the exchange's stacked shapes with
+   phase 3.  The profiled round counts B3 by every kernel name it has and
+   prints its strided copies and adds.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -332,11 +340,83 @@ def kernel_edges(dev, gen) -> int:
     return cases
 
 
+# blocks of the unpack kernel's edge records: EDGE_BLOCKS and the largest
+# block it takes, whose one row a CTA needs dynamic shared memory above 48 KB
+UNPACK_BLOCKS = EDGE_BLOCKS + (12288,)
+
+
+def edge_records(rows: int, block: int, gen, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows, kpad) records, kpad = padded_k(round(0.2 * block)): kpad / 2
+    survivors a row on distinct lanes below block - 8, ascending, then
+    edge slots: a duplicate of slot 0's lane (two values sum), -1,
+    INT_MIN, block and block + 5 (ignored), a NaN on lane block - 2, -0.0
+    on lane block - 1 (lanes of their own), +inf on lane block - 3; the
+    rest 0.0 at the sentinel, one holding 9.0 (it must write nothing)."""
+    from repro_torch.kernels.pack_residuals import padded_k
+
+    kpad = padded_k(int(round(0.2 * block)))
+    n = kpad // 2
+    lanes = torch.rand((rows, block - 8), generator=gen, device=dev).argsort(dim=1)[:, :n].sort(dim=1).values
+    vals = torch.zeros((rows, kpad), device=dev)
+    idx = torch.full((rows, kpad), block, dtype=torch.int32, device=dev)
+    vals[:, :n] = torch.randn((rows, n), generator=gen, device=dev)
+    idx[:, :n] = lanes.to(torch.int32)
+    edges = [(0.75, None), (5.0, -1), (6.0, -(2**31)), (7.0, block), (8.0, block + 5),
+             (float("nan"), block - 2), (-0.0, block - 1), (float("inf"), block - 3), (9.0, block)]
+    for j, (v, i) in enumerate(edges):
+        vals[:, n + j] = v
+        idx[:, n + j] = idx[:, 0] if i is None else i
+    return vals, idx
+
+
+def unpack_edges(dev, gen) -> int:
+    """B3's tile entry and its leaf entry on edge records at every
+    UNPACK_BLOCKS block, bit for bit (NaN positions equal) against their
+    plain versions: the leaf in f32 and bf16, 3 ranks of d = 3 * block,
+    2 * block + 100 and 2 * block + 101 (d % block != 0; d % 8 == 4 and
+    d % 4 == 1 put ranks' rows off the 16-byte boundary), without a base and
+    onto a base holding -0.0 on every third value (an empty lane gives +0.0
+    there).  Returns the number of cases checked."""
+    from repro_torch.kernels.pack_residuals import (
+        unpack_sparse_blocks,
+        unpack_sparse_blocks_into,
+        unpack_sparse_blocks_into_ref,
+        unpack_sparse_blocks_ref,
+    )
+
+    cases = 0
+    for block in UNPACK_BLOCKS:
+        vals, idx = edge_records(12, block, gen, dev)
+        got = unpack_sparse_blocks(vals, idx, block)
+        torch.cuda.synchronize()
+        check(same(got, unpack_sparse_blocks_ref(vals, idx, block)), f"unpack tile block {block}: edge records")
+        cases += 1
+        for d in (3 * block, 2 * block + 100, 2 * block + 101):
+            nb = -(-d // block)
+            v, i = vals[: 3 * nb], idx[: 3 * nb]
+            for dt in (torch.float32, torch.bfloat16):
+                base = torch.randn((3, d), generator=gen, device=dev).to(dt)
+                base.view(-1)[::3] = -0.0
+                for b in (None, base):
+                    got = unpack_sparse_blocks_into(v, i, base, block, base=b)
+                    want = unpack_sparse_blocks_into_ref(v, i, base, block, base=b)
+                    torch.cuda.synchronize()
+                    what = f"unpack leaf block {block} d {d} {dt} {'onto a base' if b is not None else 'alone'}"
+                    check(got.dtype == dt and got.shape == (3, d), f"{what}: {got.dtype} {tuple(got.shape)}")
+                    check(same(got, want), f"{what} differs from its plain version")
+                    check(b is None or not torch.signbit(got[got == 0]).any(), f"{what}: a -0.0 base stayed -0.0")
+                    cases += 1
+    print(f"[kernels] unpack edge records: {cases} cases at blocks {UNPACK_BLOCKS} (tile; leaf f32 and bf16, "
+          f"d % block != 0, d % 4 != 0, with and without a base), bit-exact against the plain versions")
+    return cases
+
+
 # the instance of each kernel that the main path's shapes launch
 MAIN_INSTANCES = {
     "block_topk": "warp_topk_kernel<float, 32, 32>",
     "pack_sparse_blocks": "pack_kernel",
-    "unpack_sparse_blocks": "unpack_kernel",
+    "unpack_sparse_blocks": "unpack_kernel<float, false>",
+    "unpack_sparse_blocks_into": "unpack_kernel<float, true>",
     "quantize": "warp_quant_kernel<float, 32, 32>",
 }
 # the instance of the bf16 quantizer (phase 3 and the bf16 phase; the main path is f32)
@@ -379,6 +459,7 @@ def phase_kernels(dev) -> dict:
     k = max(1, int(round(CFG["comp_ratio"] * block)))
     gen = torch.Generator(device=dev).manual_seed(0)
     kernel_edges(dev, gen)
+    unpack_edges(dev, gen)
     x = torch.randn((rows, block), generator=gen, device=dev)
     res = {}
 
@@ -1851,8 +1932,12 @@ def _check_transport_run(tag: str, out: dict, cfg_kw: dict, T_: int) -> None:
 
 def profile_device_round(bundle, state, transport) -> None:
     """One more fused round body from ``state`` (no metering), warm, then
-    profiled: its wall, the device busy share and the launches by kernel
-    name (B1 4*K, B2 4*K, B3 3 * 4*K on the ring)."""
+    profiled: its wall, the device busy share, the launches by kernel name
+    (B1 4*K, B2 4*K, B3 3 * 4*K on the ring, every one of them the leaf
+    entry onto a base, by each name B3 has), the strided elementwise kernels
+    (copies into or out of a slice, ops that read one) and the adds.  The
+    unpack's slice to the leaf and its add are gone: no strided add runs,
+    and no more strided copies than the 4*K packs' pads."""
     from repro_torch.core.c2dfb import C2DFBConfig
     from repro_torch.core.topology import ring
     from repro_torch.transport import make_device_round
@@ -1867,31 +1952,63 @@ def profile_device_round(bundle, state, transport) -> None:
     launches = {k: sum(pat in n for n in names)
                 for k, pat in (("topk_kernel", "topk_kernel"), ("pack_kernel", "::pack_kernel"),
                                ("unpack_kernel", "::unpack_kernel"))}
+    b3 = {}
+    for n in names:
+        if "::unpack_kernel" in n:
+            key = n[n.index("unpack_kernel"):].split("(")[0]
+            b3[key] = b3.get(key, 0) + 1
+    # PyTorch runs an elementwise op over a non-contiguous operand (a copy
+    # out of a slice, or an add that reads one) as elementwise_kernel<...>,
+    # a contiguous one as vectorized_ or unrolled_elementwise_kernel
+    strided = [n for n in names if n.startswith("void at::native::elementwise_kernel<")]
+    adds = [n for n in names if "CUDAFunctor_add" in n]
     by_name: dict[str, list] = {}
     for e in events:
         acc = by_name.setdefault(e.name, [0.0, 0])
         acc[0] += e.time_range.elapsed_us()
         acc[1] += 1
     print(f"[transport] profiled fused round body: wall {wall!r} s, device busy {busy / 1e6!r} s "
-          f"({busy / 1e6 / wall:.3f} of the wall), {len(events)} device activities, launches {launches}")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+          f"({busy / 1e6 / wall:.3f} of the wall), {len(events)} device activities, launches {launches}; "
+          f"B3 by kernel name {b3}; strided elementwise kernels {len(strided)} "
+          f"({sum(by_name[n][0] for n in set(strided)) / 1e3:.3f} ms; copies "
+          f"{sum('copy_kernel' in n for n in strided)}, adds {sum('add' in n.lower() for n in strided)}), "
+          f"adds in all {len(adds)} ({sum(by_name[n][0] for n in set(adds)) / 1e3:.3f} ms)")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"[transport]   {us / 1e3:10.3f} ms  {n:5d}x  {name[:90]}")
+    for name in sorted(set(strided)):
+        print(f"[transport]   strided {by_name[name][1]}x {by_name[name][0] / 1e3:.3f} ms: {name[:300]}")
     check(launches == {"topk_kernel": 4 * K, "pack_kernel": 4 * K, "unpack_kernel": 3 * 4 * K},
           f"a fused round launched {launches}")
+    check(b3 == {"unpack_kernel<float, true>": 3 * 4 * K}, f"a fused round's B3 launches by name: {b3}")
+    strided_adds = sum("add" in n.lower() for n in strided)
+    strided_copies = sum("copy_kernel" in n for n in strided)
+    check(strided_adds == 0 and strided_copies <= 4 * K, f"a fused round ran {strided_adds} strided adds and "
+          f"{strided_copies} strided copies: the unpack's slice or add is back (the pads of 4*K packs copy)")
 
 
 def transport_kernel_times(dev) -> dict:
     """B2 and B3 at the fused exchange's stacked shapes (every rank's blocks
     of a leaf in one launch: (m * nb, block) tiles of B1's output, packed
     to kpad records), each bit for bit against its plain version and timed
-    beside its bound, a copy_ of its bytes and, for B3, zeros().scatter_add_."""
+    beside its bound and a copy_ of its bytes: B3's tile entry beside
+    zeros().scatter_add_; its leaf entry, straight into the (m, p, c) leaf,
+    onto a base in f32 (the fused exchange's call) and bf16 and alone in
+    f32, beside today's three calls (the tile, the slice to the leaf and the
+    add).  Returns B2's and B3's tile entries, and the leaf entry's record."""
     from repro_torch.kernels.pack_residuals import (
-        pack_sparse_blocks, pack_sparse_blocks_ref, padded_k, unpack_sparse_blocks, unpack_sparse_blocks_ref,
+        pack_sparse_blocks,
+        pack_sparse_blocks_ref,
+        padded_k,
+        unpack_sparse_blocks,
+        unpack_sparse_blocks_into,
+        unpack_sparse_blocks_into_ref,
+        unpack_sparse_blocks_ref,
     )
     from repro_torch.kernels.topk_compress import block_topk_kernel
 
     m, p, c, block = TASK["m"], TASK["p"], TASK["c"], CFG["comp_block"]
-    rows = m * -(-p * c // block)
+    nb = -(-p * c // block)
+    rows = m * nb
     k = max(1, int(round(CFG["comp_ratio"] * block)))
     kpad = padded_k(k)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1924,6 +2041,50 @@ def transport_kernel_times(dev) -> dict:
     }
     for name, entry in out.items():
         print(f"[transport kernels] {name} at the stacked shape: {entry}")
+
+    # B3's leaf entry: the records straight into the (m, p, c) leaf, onto a
+    # base with -0.0 on every seventh value (the fused exchange's call), the
+    # records carrying values that are not all bf16
+    base = torch.randn((m, p, c), generator=gen, device=dev)
+    base.view(-1)[::7] = -0.0
+    rec = vals.numel() * 8
+    leaf = {}
+    for tag, b, with_base in (("f32", base, True), ("f32 alone", base, False),
+                              ("bf16", base.to(torch.bfloat16), True)):
+        kw = dict(base=b) if with_base else {}
+        got = unpack_sparse_blocks_into(vals, idx, b, block, **kw)
+        want = unpack_sparse_blocks_into_ref(vals, idx, b, block, **kw)
+
+        def chain(b=b, with_base=with_base):  # today's three calls: the tile, the slice, the add
+            dense = unpack_sparse_blocks(vals, idx, block).reshape(m, nb * block)[:, : p * c]
+            dense = dense.reshape(b.shape).to(b.dtype)
+            return b + dense if with_base else dense
+
+        torch.cuda.synchronize()
+        check(same(got, want), f"leaf entry {tag} at the stacked shape differs from its plain version")
+        check(same(chain(), want), f"leaf entry {tag}: the three-call chain disagrees")
+        leaf_bytes = rec + b.numel() * b.element_size() * (2 if with_base else 1)
+        leaf[tag] = dict(
+            shape=[m, p, c], dtype=str(b.dtype).removeprefix("torch."), base=with_base,
+            max_abs_err=float((got.float() - want.float()).abs().nan_to_num().max()),
+            **timed(lambda b=b, kw=kw: unpack_sparse_blocks_into(vals, idx, b, block, **kw)),
+            plain_ms=timed(lambda b=b, kw=kw: unpack_sparse_blocks_into_ref(vals, idx, b, block, **kw),
+                           iters=3, warmup=1)["ms"],
+            bound_ms=bound_ms(leaf_bytes), bound_by="bytes", copy_ms=copy_ms(leaf_bytes),
+            chain_ms=timed(chain)["ms"],
+        )
+        print(f"[transport kernels] unpack_sparse_blocks_into {tag} at the stacked shape: {leaf[tag]}")
+        events, _, _ = device_window(chain, 1, cpu=False)
+        print(f"[transport kernels]   its chain: {[e.name[:160] for e in events]}")
+    main = leaf.pop("f32")
+    out["unpack_sparse_blocks_into"] = dict(
+        name="unpack_sparse_blocks_into", route="cuda", ok=True,
+        source="src/repro_torch/kernels/csrc/pack_residuals.cu",
+        replaces="src/repro/kernels/pack_residuals.py:100",
+        **main, library_ms=None,
+        library="none: no single PyTorch call; chain_ms is today's tile + slice + add",
+        alone=leaf["f32 alone"], bf16=leaf["bf16"],
+    )
     return out
 
 
@@ -2100,6 +2261,7 @@ def main() -> int:
     # 3. kernels at main-path shapes (and B2 and B3 at phase 11's stacked shapes)
     stacked = transport_kernel_times(dev)
     kernels = phase_kernels(dev)
+    kernels["unpack_sparse_blocks_into"] = stacked.pop("unpack_sparse_blocks_into")
     for name, entry in stacked.items():
         kernels[name]["transport"] = entry
     for entry, fn in [(kernels[n], f) for n, f in MAIN_INSTANCES.items()] + [
@@ -2145,8 +2307,11 @@ def main() -> int:
     com = phase_compiled(dev, bundle)
     kernels["block_topk"]["compiled_launches"] = com["block_topk"]
     kernels["quantize"]["compiled_launches"] = com["quantize"]
-    # 11. the transports: the fused and dense device exchange, card against host, B2 and B3 at the stacked shapes
-    for name, n in phase_transport(dev, bundle, main_mets).items():
+    # 11. the transports: the fused and dense device exchange, card against host, B2 and B3 at the stacked shapes;
+    # every B3 launch of the fused run is the leaf entry's (the profiled round counts them by kernel name)
+    transport = phase_transport(dev, bundle, main_mets)
+    kernels["unpack_sparse_blocks_into"]["launches"] = transport.pop("unpack_sparse_blocks")
+    for name, n in transport.items():
         kernels[name]["transport_launches"] = n
     del bundle
 

@@ -18,8 +18,9 @@ name every kernel's registers and spills), kept beside the library so a
 later process that loads it finds the log too.  ``LAUNCHES`` holds one
 plain integer per kernel wrapper and dtype (``block_topk`` and ``quantize``
 count their f32 launches, ``block_topk_bf16`` and ``quantize_bf16`` their
-bf16 ones); a wrapper adds one where it launches its kernel and nowhere
-else.
+bf16 ones; ``unpack_sparse_blocks`` counts both entry points of the unpack
+kernel, the tile and the leaf, in f32 and bf16); a wrapper adds one where
+it launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ SIGNATURES = {
     "pack_residuals": {
         "pack_sparse_blocks_f32": (_P, _P, _P, _I, _I, _I, _P),
         "unpack_sparse_blocks_f32": (_P, _P, _P, _I, _I, _I, _P),
+        "unpack_sparse_blocks_leaf_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "unpack_sparse_blocks_leaf_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "quantize": {
         "quantize_f32": (_P, _P, _P, _P, _I, _I, _I, _P),

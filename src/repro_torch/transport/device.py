@@ -24,7 +24,8 @@ exchanges and the dense x / s_x outer broadcasts.  With ``fused=True``
 (block-sparse compressors) every residual is packed on the device into
 ``(vals, idx)`` records (B2, one launch over every rank's blocks of a
 leaf), the shifts / gather move the records, and every receiver, and the
-sender for its own reference, unpacks them (B3, one launch over every
+sender for its own reference, unpacks them straight into the leaf, added to
+the copy or reference it updates (B3's leaf entry, one launch over every
 rank's records).
 
 Wire truth: after each round every executed payload makes the
@@ -64,7 +65,7 @@ from repro_torch.core.gossip import mix_delta_shard, mix_gathered, mix_received,
 from repro_torch.core.inner_loop import InnerState, inner_transmit, refresh_tracker
 from repro_torch.core.topology import Topology
 from repro_torch.core.types import Tree, tree_leaves, tree_map, tree_unflatten
-from repro_torch.kernels.pack_residuals import pack_sparse_blocks, padded_k, unpack_sparse_blocks
+from repro_torch.kernels.pack_residuals import pack_sparse_blocks, padded_k, unpack_sparse_blocks_into
 from repro_torch.net import wire
 from repro_torch.net.fabric import NetworkFabric, StragglerModel
 from repro_torch.net.wire import codec_for
@@ -174,21 +175,26 @@ def _pack_tree(tree: Tree, block: int, kpad: int) -> tuple[Tree, Tree]:
     return tree_unflatten(tree, vs), tree_unflatten(tree, ix)
 
 
+def _unpack_leaf(v: torch.Tensor, i: torch.Tensor, like: torch.Tensor, block: int, base=None) -> torch.Tensor:
+    """One leaf's (m, nb, kpad) records, every rank's in ONE unpack launch,
+    straight into a leaf shaped and typed like ``like`` (plus ``base``)."""
+    return unpack_sparse_blocks_into(v.reshape(-1, v.shape[-1]), i.reshape(-1, i.shape[-1]), like, block, base=base)
+
+
 def _unpack_like(vals_tree: Tree, idx_tree: Tree, like: Tree, block: int) -> Tree:
     """Inverse of `_pack_tree` against a shape/dtype template: packed leaves
     (m, nb, kpad) -> dense leaves shaped and typed like ``like``, every
     rank's records of a leaf in ONE unpack launch.  Exact for <= kpad
     survivors a block: the records carry the values untouched, and f32 ->
     the leaf's dtype is exact for values that started in it."""
+    return tree_map(lambda v, i, lk: _unpack_leaf(v, i, lk, block), vals_tree, idx_tree, like)
 
-    def leaf(v, i, like_leaf):
-        nb, kpad = v.shape[-2:]
-        lead = like_leaf.shape[0]
-        d = math.prod(like_leaf.shape[1:])
-        dense = unpack_sparse_blocks(v.reshape(-1, kpad), i.reshape(-1, kpad), block)
-        return dense.reshape(lead, nb * block)[:, :d].reshape(like_leaf.shape).to(like_leaf.dtype)
 
-    return tree_map(leaf, vals_tree, idx_tree, like)
+def _unpack_onto(vals_tree: Tree, idx_tree: Tree, base: Tree, block: int) -> Tree:
+    """``base + _unpack_like(vals, idx, base, block)``, each leaf in ONE pass
+    of the unpack kernel (records and base read, the sum written: no tile,
+    no slice, no separate add)."""
+    return tree_map(lambda v, i, b: _unpack_leaf(v, i, b, block, base=b), vals_tree, idx_tree, base)
 
 
 # ---------------------------------------------------------------------------
@@ -218,13 +224,12 @@ class _PpermuteGossiper:
     def push_packed(self, copies: tuple, packed, block: int) -> tuple:
         """Fused push: the shifts move the packed (vals, idx) records (nb *
         kpad * 8 bytes a leaf, not the nb * block * 4 of the tile) and the
-        receivers unpack them, one unpack launch a shift."""
+        receivers unpack them onto their copies, one unpack launch a shift."""
         vals_t, idx_t = packed
-        out = []
-        for (s, _), c in zip(self.schedule, copies):
-            q = _unpack_like(shift_tree(vals_t, s), shift_tree(idx_t, s), c, block)
-            out.append(tree_map(torch.add, c, q))
-        return tuple(out)
+        return tuple(
+            _unpack_onto(shift_tree(vals_t, s), shift_tree(idx_t, s), c, block)
+            for (s, _), c in zip(self.schedule, copies)
+        )
 
 
 class _AllGatherGossiper:
@@ -246,8 +251,8 @@ class _AllGatherGossiper:
 
     def push_packed(self, table: Tree, packed, block: int) -> Tree:
         """Fused push: the gather moves packed (vals, idx) records; the
-        (m, nb, kpad) record table is unpacked in one launch."""
-        return tree_map(torch.add, table, _unpack_like(*packed, table, block))
+        (m, nb, kpad) record table is unpacked onto the table in one launch."""
+        return _unpack_onto(*packed, table, block)
 
 
 def _gossiper(topo: Topology, device):
@@ -282,28 +287,35 @@ def _device_inner_loop(
     With ``fused=(block, kpad)`` each residual is packed on the device right
     after compression (`_pack_tree`): the exchange moves only the records,
     every receiver (and the sender's own reference update) applies the
-    unpacked form, bit-exact with the dense path for <= kpad survivors a
+    unpacked form (`_unpack_onto`: one pass adds it to the copy or
+    reference), bit-exact with the dense path for <= kpad survivors a
     block, and the payload stacks are the packed ``(vals, idx)`` pairs."""
     copies_d = gossip.init(state.d_hat)
     copies_s = gossip.init(state.s_hat)
 
     def broadcast(copies, q):
-        """Push one compressed residual; returns (copies, applied residual,
-        wire payload)."""
+        """Push one compressed residual; returns (copies, wire payload)."""
         if fused is None:
-            return gossip.push(copies, q), q, q
+            return gossip.push(copies, q), q
         block, kpad = fused
         packed = _pack_tree(q, block, kpad)
-        copies = gossip.push_packed(copies, packed, block)
-        return copies, _unpack_like(*packed, q, block), packed
+        return gossip.push_packed(copies, packed, block), packed
+
+    def apply(hat, pay):
+        """The sender's own reference update ``hat + q``: with the fused
+        exchange, its records unpacked onto ``hat`` as every receiver's are
+        (a -0.0 residual arrives as +0.0, as in the reference)."""
+        if fused is None:
+            return tree_map(torch.add, hat, pay)
+        return _unpack_onto(*pay, hat, fused[0])
 
     pays_d, pays_s = [], []
     for _ in range(K):
         mix_d = gossip.mix(copies_d, state.d_hat)
         d_new = tree_map(lambda d, md, s: d + gamma * md - eta * s, state.d, mix_d, state.s)
         q_d = inner_transmit(compressor, generator, d_new, state.d_hat)
-        copies_d, q_d, pay_d = broadcast(copies_d, q_d)
-        d_hat_new = tree_map(torch.add, state.d_hat, q_d)
+        copies_d, pay_d = broadcast(copies_d, q_d)
+        d_hat_new = apply(state.d_hat, pay_d)
 
         g_new = grad_fn(d_new)
         mix_s = gossip.mix(copies_s, state.s_hat)
@@ -311,8 +323,8 @@ def _device_inner_loop(
             lambda s, ms, gn, gp: s + gamma * ms + gn - gp, state.s, mix_s, g_new, state.g_prev
         )
         q_s = inner_transmit(compressor, generator, s_new, state.s_hat)
-        copies_s, q_s, pay_s = broadcast(copies_s, q_s)
-        s_hat_new = tree_map(torch.add, state.s_hat, q_s)
+        copies_s, pay_s = broadcast(copies_s, q_s)
+        s_hat_new = apply(state.s_hat, pay_s)
 
         state = InnerState(d=d_new, d_hat=d_hat_new, s=s_new, s_hat=s_hat_new, g_prev=g_new)
         pays_d.append(pay_d)

@@ -23,12 +23,15 @@ from repro.kernels.quantize import quantize_pallas
 from repro.kernels.ref import block_topk_ref as j_block_topk_ref
 from repro.kernels.ref import quantize_ref as j_quantize_ref
 from repro.kernels.topk_compress import block_topk_pallas
+from repro.transport.device import _unpack_like as j_unpack_like
 from repro_torch.core.compression import KernelBlockTopK, KernelQuant
+from repro_torch.kernels import _build
 from repro_torch.kernels.ops import block_topk, block_topk_nodes, quantize, quantize_nodes
 from repro_torch.kernels.pack_residuals import (
     pack_sparse_blocks,
     padded_k,
     unpack_sparse_blocks,
+    unpack_sparse_blocks_into,
 )
 from repro_torch.kernels.quantize import quantize_kernel, quantize_leaf
 from repro_torch.kernels.ref import block_topk_ref, quantize_ref
@@ -207,6 +210,88 @@ def test_unpack_sums_duplicates_and_ignores_out_of_range_indices():
     want = np.asarray(j_unpack(jnp.asarray(vals.numpy()), jnp.asarray(idx.numpy()), block=128, interpret=True))
     np.testing.assert_array_equal(out.numpy(), want)
     assert out[0, 3] == 3.0 and out.sum() == 3.0
+
+
+def _leaf_records(lead: int, d: int, block: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(lead * nb, 128) records of a (lead, d) leaf: up to 40 survivors a
+    row at random lanes in ascending order (lanes past d in a rank's last
+    block too, which the leaf drops), then edge records in the first and
+    the last row: a duplicate index (two values that sum), -1, block and
+    block + 5 (ignored), and -0.0 values on lanes of their own."""
+    rng = np.random.default_rng(seed)
+    rows = lead * -(-d // block)
+    vals = np.zeros((rows, 128), np.float32)
+    idx = np.full((rows, 128), block, np.int32)
+    for r in range(rows):
+        n = int(rng.integers(0, 41))
+        idx[r, :n] = np.sort(rng.choice(block, n, replace=False))
+        vals[r, :n] = rng.normal(size=n) * rng.uniform(0.01, 10.0)
+    for r in {0, rows - 1}:
+        vals[r, 100:106] = [1.5, 2.25, 3.0, 4.0, -0.0, -0.0]
+        idx[r, 100:106] = [7, 7, -1, block + 5, 2, block - 1]
+        idx[r, 106] = block  # the sentinel, holding a value it must not write
+        vals[r, 106] = 9.0
+    return vals, idx
+
+
+@pytest.mark.parametrize("shape", [(1, 100), (1, 257), (3, 257), (3, 384), (3, 390), (3, 5, 41)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_unpack_into_leaf_matches_the_reference_unpack_like(shape, dtype, with_base):
+    """The leaf entry's plain version (what runs on the CPU) against the
+    reference's unpack (the Pallas kernel in interpret mode), slice, cast
+    (`repro.transport.device._unpack_like`) and ``+ base``, bit for bit:
+    m in {1, 3}, ragged d and d % 4 != 0 (257, 390, 205), f32 and bf16
+    leaves, duplicate and out-of-range indices, and a base holding -0.0 on
+    empty lanes (the sum is +0.0, as the reference's add gives)."""
+    block = 128
+    lead, d = shape[0], int(np.prod(shape[1:]))
+    nb = -(-d // block)
+    vals, idx = _leaf_records(lead, d, block, seed=d + lead)
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(7)
+    base = rng.normal(size=shape).astype(np.float32)
+    base.reshape(-1)[::3] = -0.0
+    jlike, like = _same_inputs(base, dtype)
+    want = j_unpack_like(jnp.asarray(vals.reshape(lead, nb, 128)), jnp.asarray(idx.reshape(lead, nb, 128)),
+                         jlike, block)
+    if with_base:
+        want = jlike + want
+    _build.reset_launch_counts()
+    got = unpack_sparse_blocks_into(torch.from_numpy(vals), torch.from_numpy(idx), like, block,
+                                    base=like if with_base else None)
+    assert got.shape == shape and got.dtype == tdt
+    np.testing.assert_array_equal(_torch_bits(got.contiguous()), _bits(want))
+    if with_base:  # an empty lane over a -0.0 base: +0.0
+        empty = _torch_bits(got.reshape(-1)[::3].contiguous())
+        assert (empty != _bits(np.asarray(jlike).reshape(-1)[::3])).any()
+    assert _build.launch_counts()["unpack_sparse_blocks"] == 0  # CPU tensors: the plain version
+
+
+def test_unpack_into_the_tile_layout_is_the_tile_entry():
+    """A leaf of one block a rank is the tile: both entries agree."""
+    vals, idx = _leaf_records(5, 256, 256, seed=1)
+    vt, it = torch.from_numpy(vals), torch.from_numpy(idx)
+    tile = unpack_sparse_blocks(vt, it, 256)
+    assert torch.equal(unpack_sparse_blocks_into(vt, it, torch.empty((5, 256)), 256), tile)
+
+
+def test_unpack_into_rejects_bad_inputs():
+    vals, idx = torch.zeros((6, 128)), torch.full((6, 128), 128, dtype=torch.int32)
+    like = torch.zeros((3, 200))  # 2 blocks a rank: 6 rows
+    assert unpack_sparse_blocks_into(vals, idx, like, 128).shape == (3, 200)
+    with pytest.raises(ValueError, match="record rows"):
+        unpack_sparse_blocks_into(vals[:5], idx[:5], like, 128)
+    with pytest.raises(ValueError, match="base"):
+        unpack_sparse_blocks_into(vals, idx, like, 128, base=torch.zeros((3, 200), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="base"):
+        unpack_sparse_blocks_into(vals, idx, like, 128, base=torch.zeros((3, 199)))
+    with pytest.raises(TypeError):
+        unpack_sparse_blocks_into(vals, idx.to(torch.int64), like, 128)
+    with pytest.raises(ValueError):
+        unpack_sparse_blocks_into(torch.zeros((6, 100)), torch.zeros((6, 100), dtype=torch.int32), like, 128)
+    with pytest.raises(ValueError, match="rank"):
+        unpack_sparse_blocks_into(vals, idx, torch.zeros(()), 128)
 
 
 @pytest.mark.parametrize("shape", [(100,), (3, 7, 11), (1025,), (4096,)])

@@ -473,6 +473,49 @@ def test_pack_unpack_exact_and_the_reference_records(dtype):
     assert sum(_build.launch_counts().values()) == 0  # CPU tensors: the plain versions
 
 
+@pytest.mark.parametrize("name", ["ring", "star"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_push_and_apply_equal_the_dense_exchange(name, dtype):
+    """The fused exchange unpacks the records straight onto each copy (or
+    the table) and the sender's own reference in one pass: bit for bit the
+    dense push of the residual, and, on a base holding -0.0, bit for bit
+    the reference's order (unpack, cast, then add: the empty lane's +0.0
+    turns a -0.0 base into +0.0)."""
+    from repro_torch.core.types import tree_map
+    from repro_torch.transport.device import _gossiper, _unpack_onto
+
+    pt = ptopo.make_topology(name, M)
+    g = _gossiper(pt, "cpu")
+    rng = np.random.default_rng(4)
+    hat = {k: torch.from_numpy(v).to(dtype) for k, v in _residual_tree().items()}
+    comp = PC.KernelBlockTopK(ratio=0.25, block=128)
+    q = {k: comp.compress_nodes(torch.from_numpy(rng.normal(size=v.shape).astype(np.float32)).to(dtype))
+         for k, v in hat.items()}
+    block, kpad = fused_pack_spec(comp)
+    packed = _pack_tree(q, block, kpad)
+    copies = g.init(hat)
+    _build.reset_launch_counts()
+
+    def leaves(copies):  # the ring keeps a tree a shift, the gather one table
+        return [v for t in (copies if isinstance(copies, tuple) else (copies,)) for v in ptypes.tree_leaves(t)]
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    for a, b in zip(leaves(g.push_packed(copies, packed, block)), leaves(g.push(copies, q)), strict=True):
+        assert a.dtype == dtype and torch.equal(bits(a), bits(b))
+    applied = _unpack_onto(*packed, hat, block)
+    for a, b in zip(leaves(applied), leaves(tree_map(torch.add, hat, q)), strict=True):
+        assert torch.equal(bits(a), bits(b))
+    # a -0.0 base: +0.0 on the empty lanes, as the reference's order gives
+    neg = tree_map(lambda v: torch.full_like(v, -0.0), hat)
+    got = _unpack_onto(*packed, neg, block)
+    want = tree_map(torch.add, neg, _unpack_like(*packed, neg, block))
+    for a, b, r in zip(leaves(got), leaves(want), leaves(q), strict=True):
+        assert torch.equal(bits(a), bits(b)) and not torch.signbit(a[r == 0]).any()
+    assert _build.launch_counts()["unpack_sparse_blocks"] == 0  # CPU tensors: the plain versions
+
+
 def test_pack_tree_raises_rather_than_drop():
     """A block holding more than kpad survivors (the threshold's ties) makes
     the pack raise; it never drops a value."""

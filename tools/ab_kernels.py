@@ -1,27 +1,31 @@
 #!/usr/bin/env python3
-"""Time an earlier build of the port's top-k, pack and quantizer kernels
-against the current one on one CUDA card, in turns, and dump both builds'
-SASS.
+"""Time an earlier build of the port's top-k, pack, unpack and quantizer
+kernels against the current one on one CUDA card, in turns, and dump both
+builds' SASS.
 
     git archive <commit> src/repro_torch/kernels/csrc | tar -x -C old/
     python3 tools/ab_kernels.py old/src/repro_torch/kernels/csrc --out DIR
 
 The earlier sources must export the tile entry points of the current ones
 (``block_topk_f32``, ``block_topk_bf16``, ``pack_sparse_blocks_f32``,
-``quantize_f32``, ``quantize_bf16``, with the signatures of
-``_build.SIGNATURES``).  Both builds use the port's nvcc flags.  Each build
-is first checked bit for bit against the plain versions at the main path's
-shapes (block top-k f32 and bf16 at (19,850, 1,024), k = 205; pack at
-(1,985, 1,024) of its output; the quantizer f32 and bf16 at (19,850, 1,024),
-bits 4).  Then each kernel is timed in the order earlier, current, current,
-earlier, as chip_smoke.py times a kernel (device time by torch.profiler,
-call time by CUDA events); the current quantizer's leaf entry point (the
-(10, 2,032,620) leaf read in place) is timed in the current turns.  The
-SASS of both libraries goes to DIR, with each kernel's instruction count
-by opcode, in all and in each loop, printed for the instances the main path
-launches; for the quantizer also the instructions a coded value (one FRND,
-its floor, a value: a loop's instructions over its FRND, or in the
-unrolled kernel the span between a code path's first and last FRND).
+``unpack_sparse_blocks_f32``, ``quantize_f32``, ``quantize_bf16``, with the
+signatures of ``_build.SIGNATURES``).  Both builds use the port's nvcc
+flags.  Each build is first checked bit for bit against the plain versions
+at the main path's shapes (block top-k f32 and bf16 at (19,850, 1,024), k =
+205; pack at (1,985, 1,024) of its output; the unpack tile at the fused
+exchange's stacked shape, (19,850, 256) records of B1's output back to
+(19,850, 1,024); the quantizer f32 and bf16 at (19,850, 1,024), bits 4).
+Then each kernel is timed in the order earlier, current, current, earlier,
+as chip_smoke.py times a kernel (device time by torch.profiler, call time
+by CUDA events); the current quantizer's leaf entry point (the (10,
+2,032,620) leaf read in place) is timed in the current turns, and the
+unpack's leaf entry point (those records onto a (10, 2,032,620) f32 base)
+in the turns of every build that exports it.  The SASS of both libraries
+goes to DIR, with each kernel's instruction count by opcode, in all and in
+each loop, printed for the instances the main path launches; for the
+quantizer also the instructions a coded value (one FRND, its floor, a
+value: a loop's instructions over its FRND, or in the unrolled kernel the
+span between a code path's first and last FRND).
 """
 
 from __future__ import annotations
@@ -44,7 +48,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.pack_residuals import pack_sparse_blocks_ref, padded_k  # noqa: E402
+from repro_torch.kernels.pack_residuals import (  # noqa: E402
+    pack_sparse_blocks_ref,
+    padded_k,
+    unpack_sparse_blocks_into_ref,
+    unpack_sparse_blocks_ref,
+)
 from repro_torch.kernels.ref import block_topk_ref, quantize_ref  # noqa: E402
 
 SOURCES = ("topk_compress", "pack_residuals", "quantize")
@@ -125,6 +134,7 @@ def main() -> int:
         for side in builds:
             for n in SOURCES:
                 for fn, (ops, loops, frnd) in sass_counts(Path(tmp) / side / f"lib{n}.so", args.out / f"{side}-{n}.sass").items():
+                    # pack_kernel matches every unpack_kernel instance too
                     if not re.search(r"topk_kernelI(f|13__nv_bfloat16)(Li32)?E|pack_kernel|"
                                      r"quant(ize)?_kernelI(f|13__nv_bfloat16)(Li32)?E", fn):
                         continue
@@ -181,6 +191,27 @@ def main() -> int:
                                             stream), name)
             return out
 
+        # the unpack tile at the fused exchange's stacked shape: B1's output of
+        # every node packed to 256 records a block (the plain pack), back
+        qs = block_topk_ref(x, k)
+        svals, sidx = pack_sparse_blocks_ref(qs, padded_k(k), block)
+        sback = unpack_sparse_blocks_ref(svals, sidx, block)
+
+        def unpack(lib):
+            out = torch.empty((rows, block), device=dev)
+            _build.check(lib.unpack_sparse_blocks_f32(svals.data_ptr(), sidx.data_ptr(), out.data_ptr(), rows,
+                                                      block, svals.shape[1], stream), "unpack")
+            return out
+
+        sbase = torch.randn((m, d), generator=gen, device=dev)
+
+        def unpack_leaf(lib):
+            out = torch.empty_like(sbase)
+            _build.check(lib.unpack_sparse_blocks_leaf_f32(svals.data_ptr(), sidx.data_ptr(), sbase.data_ptr(),
+                                                           out.data_ptr(), m, d, block, svals.shape[1], stream),
+                         "unpack leaf")
+            return out
+
         xb = x.to(torch.bfloat16)
         u = torch.rand(x.shape, generator=gen, device=dev)
         ub = torch.rand(x.shape, generator=gen, device=dev, dtype=torch.bfloat16)
@@ -195,6 +226,10 @@ def main() -> int:
             torch.cuda.synchronize()
             chip_smoke.check(torch.equal(chip_smoke.bits(vals), chip_smoke.bits(rvals)) and torch.equal(idx, ridx),
                              f"{side} pack differs from its plain version")
+            got = unpack(libs["pack_residuals"])
+            torch.cuda.synchronize()
+            chip_smoke.check(torch.equal(chip_smoke.bits(got), chip_smoke.bits(sback)) and torch.equal(got, qs),
+                             f"{side} unpack differs from its plain version")
             for xin, uin in ((x, u), (xb, ub)):
                 got = quant(libs["quantize"], xin, uin)
                 torch.cuda.synchronize()
@@ -206,20 +241,31 @@ def main() -> int:
             chip_smoke.check(chip_smoke.same(got, chip_smoke.quant_leaf_want(xin.reshape(-1)[: m * d].reshape(m, d),
                                                                              uin, bits, block)),
                              f"current quantize leaf {xin.dtype} differs from its plain version")
+        for side, libs in builds.items():
+            if hasattr(libs["pack_residuals"], "unpack_sparse_blocks_leaf_f32"):
+                got = unpack_leaf(libs["pack_residuals"])
+                torch.cuda.synchronize()
+                chip_smoke.check(
+                    chip_smoke.same(got, unpack_sparse_blocks_into_ref(svals, sidx, sbase, block, base=sbase)),
+                    f"{side} unpack leaf differs from its plain version")
         print(f"[check] both builds bit-exact: block_topk f32 and bf16 ({rows}, {block}) k={k}, "
-              f"pack ({nb_node}, {block}) kpad {kpad}, quantize f32 and bf16 ({rows}, {block}) bits {bits}; "
-              f"the current quantize leaf ({m}, {d}) too")
+              f"pack ({nb_node}, {block}) kpad {kpad}, unpack ({rows}, {svals.shape[1]}) -> ({rows}, {block}), "
+              f"quantize f32 and bf16 ({rows}, {block}) bits {bits}; the current quantize leaf ({m}, {d}) and "
+              f"unpack leaf onto a ({m}, {d}) base too")
 
         for side in ("earlier", "current", "current", "earlier"):
             libs = builds[side]
             cases = [("block_topk_f32", lambda: topk(libs["topk_compress"], x)),
                      ("block_topk_bf16", lambda: topk(libs["topk_compress"], xb)),
                      ("pack_sparse_blocks", lambda: pack(libs["pack_residuals"])),
+                     ("unpack_sparse_blocks", lambda: unpack(libs["pack_residuals"])),
                      ("quantize_f32", lambda: quant(libs["quantize"], x, u)),
                      ("quantize_bf16", lambda: quant(libs["quantize"], xb, ub))]
             if side == "current":
                 cases += [("quantize_leaf_f32", lambda: quant_leaf(libs["quantize"], x, u)),
                           ("quantize_leaf_bf16", lambda: quant_leaf(libs["quantize"], xb, ub))]
+            if hasattr(libs["pack_residuals"], "unpack_sparse_blocks_leaf_f32"):  # earlier builds may lack it
+                cases += [("unpack_sparse_blocks_leaf_f32", lambda: unpack_leaf(libs["pack_residuals"]))]
             for what, fn in cases:
                 t = chip_smoke.timed(fn)
                 results[what].append(dict(side=side, ms=t["ms"], call_ms=t["call_ms"], timer=t["timer"]))
