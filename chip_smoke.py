@@ -81,7 +81,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    body profiled; the dense exchange metered in the same chunked format,
    bit for bit the fused run (state, every metric, every node's bytes on
    every step and round: measure_tree_bytes_chunked of the dense slices);
-   the hypergradient-norm gap to phase 4's run() printed; kernel_quant on a
+   the fused round on phase 4's run()'s own states, round by round, with
+   run()'s top-k selections imposed: every row whose own choice differs a
+   near-tie, and the round equal in value to c2dfb_round with the
+   exchange's mixes (shift by shift, sum w (hat_j - hat_i)); kernel_quant on a
    torch.Generator, T = 2 (B4 80, the closed-form bytes); on m = 4, ring and
    star, dense and fused, and make_sharded_inner_loop, card against host.
    B2 and B3 (its tile entry against zeros().scatter_add_, its leaf entry
@@ -2088,6 +2091,101 @@ def transport_kernel_times(dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def exchange_mixes(topo):
+    """Within the block, run()'s dense mixes (W - I) @ hat become the device
+    exchange's, sum over the schedule's shifts of w (hat_j - hat_i) in f32
+    (`repro_torch.core.gossip.mix_delta_shard`).  The two forms differ by
+    more than their order: W - I in f32 has rows that sum to 5.96e-8, not
+    0 (1/3 is not an f32, and 1/3 - 1 rounds), so each dense mix adds that
+    multiple of hat_i, which the differences never carry."""
+    from repro_torch.core import c2dfb, inner_loop
+    from repro_torch.core.gossip import mix_delta_shard
+
+    saved = c2dfb.mix_delta_dense, inner_loop.mix_delta_dense
+    c2dfb.mix_delta_dense = inner_loop.mix_delta_dense = lambda W, x: mix_delta_shard(topo, x)
+    try:
+        yield
+    finally:
+        c2dfb.mix_delta_dense, inner_loop.mix_delta_dense = saved
+
+
+def mix_forms_agree(topo, W: torch.Tensor, hat: torch.Tensor) -> float:
+    """The exchange's mix of ``hat`` against run()'s dense one: they differ
+    by the dense coefficients' row sums times hat_i, and by each one's
+    rounding, at most 4 f32 epsilons of sum_j |(W - I)_ij| |hat_j| (a few
+    roundings of each product and sum); a wrong weight or shift lies far
+    outside.  Returns the largest difference as a share of that bound."""
+    from repro_torch.core.gossip import mix_delta_dense, mix_delta_shard, w_minus_i
+
+    L = w_minus_i(W)
+    flat = hat.reshape(hat.shape[0], -1)
+    diff = (mix_delta_shard(topo, hat) - mix_delta_dense(W, hat)).reshape(flat.shape).double()
+    rho = L.double().sum(dim=1, keepdim=True)
+    bound = rho.abs() * flat.double().abs() + 4 * torch.finfo(torch.float32).eps * (L.abs().double() @ flat.double().abs())
+    share = float(((diff - rho * flat.double()).abs() - bound).max())
+    check(share <= 0, f"the exchange's mix of a reference differs from the dense mix by more than the forms and "
+          f"their rounding allow ({share!r} over)")
+    return float(((diff.abs()) / (bound + 1e-300)).max())
+
+
+def fused_on_run_states(dev, bundle, main_mets) -> None:
+    """The fused device round on run()'s own round-t states, round by round
+    (phase 4's run, stepped again: its hypergradient norms bit for bit
+    run()'s).  run()'s round records every top-k selection; the fused round
+    on the same state keeps them, and every row where its own choice
+    differs must be a near-tie (`repro_torch.core.selection`: the two
+    thresholds within the residuals' largest difference plus the
+    bisection's resolution).  The same round through `c2dfb_round` with the
+    exchange's mixes (`exchange_mixes`) and the same selections must equal
+    the fused round in value, every state tensor: so the exchange (its
+    copies, shifts, packs and unpacks) computes that round exactly, and the
+    fused run parts from run() by the mixing form and the near-ties alone.
+    Prints the parted rows, their largest relative k-th to (k+1)-th gap,
+    and each field's largest distance between the fused round and
+    run()'s."""
+    from repro_torch.async_gossip.compiled import _tensors
+    from repro_torch.core import selection
+    from repro_torch.core.c2dfb import C2DFBConfig, c2dfb_round, init_state
+    from repro_torch.core.topology import ring
+    from repro_torch.transport import make_device_round, mesh_for_nodes
+
+    topo, cfg = ring(TASK["m"]), C2DFBConfig(**CFG)
+    problem = bundle.problem
+    round_fn = make_device_round(problem, topo, cfg, mesh_for_nodes(TASK["m"], dev), fused=True)
+    state = init_state(problem, cfg, bundle.x0, bundle.y0)
+    seen, seen_ex = selection.Partings(), selection.Partings()
+    names = ("x", "s_x", "u", "y", "y_hat", "y_s", "y_s_hat", "y_g", "z", "z_hat", "z_s", "z_s_hat", "z_g")
+    for t in range(T):
+        log = []
+        with selection.recorded(log):
+            want, mets = c2dfb_round(state, None, problem, topo, cfg)
+        check(_same_bits(mets["hypergrad_norm"], main_mets["hypergrad_norm"][t]),
+              f"round {t}: the stepped round is not run()'s round")
+        W = torch.as_tensor(topo.W, dtype=torch.float32, device=state.x.device)
+        for hat in (state.x, state.s_x, state.inner_y.d_hat, state.inner_y.s_hat, state.inner_z.d_hat,
+                    state.inner_z.s_hat):
+            mix_forms_agree(topo, W, hat)
+        rows_before = seen.rows
+        with selection.imposed(log, seen):
+            got = round_fn(state.x, state.s_x, state.u_prev, state.inner_y, state.inner_z, None)[:5]
+        with selection.imposed(log, seen_ex), exchange_mixes(topo):
+            ex, _ = c2dfb_round(state, None, problem, topo, cfg)
+        del log
+        got, ex = _tensors(got), _tensors((ex.x, ex.s_x, ex.u_prev, ex.inner_y, ex.inner_z))
+        check(all(torch.equal(a, b) for a, b in zip(got, ex)), f"round {t}: the fused round differs from "
+              "c2dfb_round with the exchange's mixes: the exchange is at fault")
+        dist = {n: float((a - b).abs().max()) for n, a, b in zip(
+            names, got, _tensors((want.x, want.s_x, want.u_prev, want.inner_y, want.inner_z)))}
+        print(f"[transport C4] round {t}: {seen.rows - rows_before} parted rows, every one a near-tie; the fused "
+              f"round equals c2dfb_round with the exchange's mixes in value; its largest distance to run()'s round "
+              f"by field: {dist}")
+        state = want
+    print(f"[transport C4] {T} rounds, {seen.compressions} compressions imposed: {seen.rows} parted rows, largest "
+          f"relative k-th to (k+1)-th gap of a parted row {seen.rel_gap!r}, largest threshold gap "
+          f"{seen.of_allowance!r} of its allowance")
+
+
 def phase_transport(dev, bundle, main_mets) -> dict:
     """The transports.
 
@@ -2103,8 +2201,10 @@ def phase_transport(dev, bundle, main_mets) -> dict:
     format (DeviceTransport(chunk=1 << 16)): its state and every metric bit
     for bit (a)'s, and its executed node bytes, which are
     wire.measure_tree_bytes_chunked of each dense slice, equal (a)'s from
-    the packed records on every step and round.  The hypergradient-norm gap
-    to run()'s (phase 4) is printed, not held (near-ties, ROADMAP §C).
+    the packed records on every step and round.  The free runs' hypergradient
+    norms part from run()'s (phase 4) at top-k near-ties, so the fused round is
+    held to run()'s round by round on run()'s own states
+    (`fused_on_run_states`).
     Then kernel_quant on a torch.Generator, T = 2, per-leaf format: B4
     launches 4*K*T, every round meters the closed form.
 
@@ -2160,8 +2260,10 @@ def phase_transport(dev, bundle, main_mets) -> dict:
           "measure_tree_bytes_chunked of the dense slice")
     gap = np.abs(fa["mets"]["hypergrad_norm"] - main_mets["hypergrad_norm"].double().cpu().numpy())
     print(f"[transport] fused and dense bit-identical (state, every metric; {sum(len(r) for r in fa['reports'])} "
-          f"phases x {TASK['m']} node bytes equal); hypergrad_norm gap to run(): {gap.tolist()} "
-          f"(run() {main_mets['hypergrad_norm'].tolist()})")
+          f"phases x {TASK['m']} node bytes equal); free runs' hypergrad_norm gap to run(): {gap.tolist()} "
+          f"(run() {main_mets['hypergrad_norm'].tolist()}), held round by round below")
+    del fb
+    fused_on_run_states(dev, bundle, main_mets)
 
     fq = _transport_run(dev, bundle, DeviceTransport(link="wan"), CFG_QUANT, 2,
                         generator=torch.Generator(device=dev).manual_seed(0))
@@ -2171,7 +2273,7 @@ def phase_transport(dev, bundle, main_mets) -> dict:
           f"kernel_quant measured_bytes {fq['mets']['measured_bytes'].tolist()}, want {quant_round_bytes()[1]}")
     counts = dict(block_topk=fa["counts"]["block_topk"], pack_sparse_blocks=fa["counts"]["pack_sparse_blocks"],
                   unpack_sparse_blocks=fa["counts"]["unpack_sparse_blocks"], quantize=fq["counts"]["quantize"])
-    del fa, fb, fq
+    del fa, fq
     phase_transport_small(dev)
     return counts
 
@@ -2234,7 +2336,480 @@ def phase_transport_small(dev) -> None:
           f"consensus {float(((res[dev].d - res[dev].d.mean(0)) ** 2).sum())!r}")
 
 
+# ---------------------------------------------------------------- phase 12: the dense LM bilevel run
+
+# phi3-mini-3.8b at its published width (arXiv:2404.14219), cut to LM_LAYERS
+# of its 32 layers, the one cut; traffic: the reference launcher's c2dfb
+# defaults (src/repro/launch/train.py:46-54, :141-145)
+LM_ARCH = "phi3-mini-3.8b"
+LM_LAYERS = 2
+LM_M, LM_B, LM_S, LM_K, LM_T = 4, 4, 128, 5, 3
+LM_LR = 3e-4
+# lm-test (tests/test_lm_transport.py:132-137) for card against host
+LM_TEST = dict(name="lm-test", arch_type="dense", pattern=("full",), mlp_type="swiglu", num_layers=1, d_model=64,
+               num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128)
+# a bf16 bound of the tests (tests/test_torch_lm_bilevel.py): a few bf16 steps
+BF16_STEPS = 4 * 2.0 ** -8
+
+
+def lm_problem(cfg, m: int, B: int, S: int, dev):
+    """make_lm_bilevel on disjoint train and validation token streams
+    (node_streams with seeds 0 and 1) and init_node_params from a seeded
+    torch.Generator on ``dev``."""
+    from repro_torch.core.lm_bilevel import init_node_params, make_lm_bilevel
+    from repro_torch.data.synthetic import node_streams
+
+    def data(seed):
+        bs = [s.next_batch() for s in node_streams(m, cfg.vocab_size, S, B, seed=seed)]
+        return {k: torch.from_numpy(np.stack([b[k] for b in bs])).to(dev) for k in ("tokens", "labels")}
+
+    problem = make_lm_bilevel(cfg, data(0), data(1), m)
+    x0, y0 = init_node_params(cfg, torch.Generator(device=dev).manual_seed(0), m)
+    return problem, x0, y0
+
+
+def lm_c2dfb(compressor: str, K: int = LM_K, ratio: float = 0.2, block: int = 1024):
+    from repro_torch.core.c2dfb import C2DFBConfig
+
+    return C2DFBConfig(lam=10.0, eta_out=LM_LR, gamma_out=0.5, eta_in=3 * LM_LR, gamma_in=0.5, K=K,
+                       compressor=compressor, comp_ratio=ratio, comp_block=block)
+
+
+@contextlib.contextmanager
+def survivors_by_leaf(block: int):
+    """Within the block, every KernelBlockTopK output's most nonzeros in a
+    block, by leaf shape, kept on the card (read once, after)."""
+    from repro_torch.core import compression as C
+
+    most: dict = {}
+    orig = C.block_topk_nodes
+
+    def counting(x, ratio=0.2, block=block):
+        out = orig(x, ratio=ratio, block=block)
+        flat = out.reshape(out.shape[0], -1)
+        nb = -(-flat.shape[1] // block)
+        tiles = torch.nn.functional.pad(flat, (0, nb * block - flat.shape[1])).reshape(-1, block)
+        cnt = torch.count_nonzero(tiles, dim=1).max()
+        key = tuple(x.shape[1:])
+        most[key] = cnt if key not in most else torch.maximum(most[key], cnt)
+        return out
+
+    C.block_topk_nodes = counting
+    try:
+        yield most
+    finally:
+        C.block_topk_nodes = orig
+
+
+def _lm_run(problem, topo, cfg, x0, y0, T_, generator=None, transport=None):
+    from repro_torch.core.c2dfb import run
+    from repro_torch.kernels import _build
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    dev = next(iter(problem.data_f.values())).device
+    state, mets = run(problem, topo, cfg, x0, y0, T=T_, generator=generator, device=dev, transport=transport)
+    torch.cuda.synchronize()
+    return state, mets, _build.launch_counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def _lm_checks(tag: str, state, mets, T_: int, y_shapes) -> None:
+    from repro_torch.core.types import tree_leaves
+
+    for tree in (state.x, state.s_x, state.inner_y.d, state.inner_z.d):
+        for leaf in tree_leaves(tree):
+            check(leaf.dtype == torch.bfloat16, f"{tag}: a leaf left bf16 ({leaf.dtype})")
+            check(bool(torch.isfinite(leaf).all()), f"{tag}: the state holds non-finite values")
+    check([tuple(v.shape) for v in tree_leaves(state.inner_y.d)] == y_shapes, f"{tag}: y has the wrong shapes")
+    for k, v in mets.items():
+        v = np.asarray(v.float().cpu() if torch.is_tensor(v) else v, np.float64)
+        check(v.shape[0] == T_ and bool(np.isfinite(v).all()), f"{tag}: metric {k} is {v}")
+
+
+def phase_lm(dev) -> dict:
+    """C2DFB on phi3-mini-3.8b (d_model 3,072, 32 heads of 96, d_ff 8,192,
+    SwiGLU, vocab 32,064, untied head) at LM_LAYERS layers through run(),
+    bf16 leaves, m = 4 on a ring, B = 4, S = 128, K = 5, lam = 10:
+
+    (a) kernel_topk (0.2 of blocks of 1,024), T = 3 after a cold round:
+        B1 bf16 launches 2 leaves x 4 K a round, none in f32; measured_bytes
+        of every round; the most survivors in a block, by leaf; the first
+        round's wall apart from the warm ones; a profiled warm round (busy
+        share, time by kernel) and the peak memory;
+    (b) kernel_quant on a torch.Generator, T = 2: B4 bf16 launches;
+    (c) round_wire_bytes_measured on (a)'s final state: B2 launches, every
+        payload the sparse codec's byte string;
+    (d) the fused DeviceTransport at full width, T = 1 (its host meter
+        takes tens of seconds a round), when no block held more than kpad
+        survivors in (a): B2 and B3 launches, B3 by its bases' dtype; else
+        its refusal, a ValueError naming the block's count;
+    (e) fused against dense bit for bit at the phi3-smoke width, m = 4, B2
+        and B3 launched, B3 onto bf16 bases;
+    (f) card against host on lm-test, round by round on the host's states
+        with its selections, within the bf16 bound of the tests.
+
+    Returns the bf16 launch counts of B1 (a) and B4 (b) and the fused run's
+    B2 and B3 counts (at full width, else at the smoke width)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.c2dfb import c2dfb_round, round_wire_bytes_measured
+    from repro_torch.core.inner_loop import inner_transmit
+    from repro_torch.core.topology import ring
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.net.wire import SparseCodec, codec_for
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pack_residuals import padded_k
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+    check(cfg.d_model == 3072 and cfg.vocab_size == 32064 and cfg.dtype == torch.bfloat16, f"{cfg} is not phi3-mini")
+    topo = ring(LM_M)
+    t0 = time.perf_counter()
+    problem, x0, y0 = lm_problem(cfg, LM_M, LM_B, LM_S, dev)
+    torch.cuda.synchronize()
+    n_x = sum(v[0].numel() for v in tree_leaves(x0))
+    n_y = sum(v[0].numel() for v in tree_leaves(y0))
+    y_shapes = [tuple(v.shape) for v in tree_leaves(y0)]
+    print(f"[lm] {cfg.name} at {cfg.num_layers} of 32 layers: d_model {cfg.d_model}, heads {cfg.num_heads}x"
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; x {n_x} and y {n_y} parameters a node, "
+          f"m {LM_M}, B {LM_B}, S {LM_S}, K {LM_K}; built in {time.perf_counter() - t0:.3f} s, "
+          f"{torch.cuda.memory_allocated()} bytes held; y leaves {y_shapes}")
+
+    # (a) the synchronous run with kernel_topk
+    tcfg = lm_c2dfb("kernel_topk")
+    _, cmets, ccounts, cold, _ = _lm_run(problem, topo, tcfg, x0, y0, 1)
+    print(f"[lm topk] cold round (traces the oracles): {cold!r} s, launches {ccounts}, measured_bytes "
+          f"{int(cmets['measured_bytes'][0])}")
+    with survivors_by_leaf(tcfg.comp_block) as most:
+        state, mets, counts, wall, peak = _lm_run(problem, topo, tcfg, x0, y0, LM_T)
+    most = {k: int(v) for k, v in most.items()}
+    _lm_checks("[lm topk]", state, mets, LM_T, y_shapes)
+    want = 2 * 4 * LM_K * LM_T
+    print(f"[lm topk] {LM_T} warm rounds in {wall!r} s ({wall / LM_T!r} s a round), launches {counts}, peak device "
+          f"memory {peak} bytes; measured_bytes {[int(b) for b in mets['measured_bytes']]}, hypergrad_norm "
+          f"{mets['hypergrad_norm'].tolist()}")
+    check(counts["block_topk_bf16"] == want and counts["block_topk"] == 0, f"B1 launched {counts}, want {want} bf16")
+    check(int(cmets["measured_bytes"][0]) == int(mets["measured_bytes"][0]), "the cold round metered other bytes")
+    kpad = padded_k(max(1, int(round(tcfg.comp_ratio * tcfg.comp_block))))
+    print(f"[lm topk] the most survivors in a block, by leaf: {most} (kpad {kpad})")
+    profile_lm_round(problem, topo, tcfg, state)
+
+    # (c) the wire bytes of (a)'s final state, through the pack kernel
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    wire = round_wire_bytes_measured(state, tcfg, topo)
+    wcounts = _build.launch_counts()
+    print(f"[lm wire] round_wire_bytes_measured {wire} in {time.perf_counter() - t0:.3f} s, launches {wcounts}")
+    check(wcounts["pack_sparse_blocks"] == 2 * 2 * LM_M * len(y_shapes), f"B2 launched {wcounts}")
+    codec = codec_for(tcfg.make_compressor())
+    t0 = time.perf_counter()
+    inner = 0
+    for inner_state in (state.inner_y, state.inner_z):
+        for a, b in ((inner_state.d, inner_state.d_hat), (inner_state.s, inner_state.s_hat)):
+            q = inner_transmit(tcfg.make_compressor(), None, a, b)
+            for i in range(LM_M):
+                for leaf in tree_leaves(q):
+                    payload = codec.encode(leaf[i])
+                    check(payload == SparseCodec().encode(leaf[i]), f"node {i}: a block-sparse payload differs")
+                    inner += len(payload)
+    check(inner * tcfg.K == wire["inner_bytes"], "the payloads disagree with round_wire_bytes_measured")
+    print(f"[lm wire] {2 * 2 * LM_M * len(y_shapes)} leaf payloads equal the sparse codec's in "
+          f"{time.perf_counter() - t0:.3f} s")
+    times = lm_kernel_times(state.inner_y.d["lm_head"] - state.inner_y.d_hat["lm_head"], tcfg)
+    del state, mets
+
+    # (b) kernel_quant on a torch.Generator
+    qcfg = lm_c2dfb("kernel_quant")
+    qstate, qmets, qcounts, qwall, qpeak = _lm_run(problem, topo, qcfg, x0, y0, 2,
+                                                   generator=torch.Generator(device=dev).manual_seed(0))
+    _lm_checks("[lm quant]", qstate, qmets, 2, y_shapes)
+    print(f"[lm quant] 2 rounds in {qwall!r} s, launches {qcounts}, peak {qpeak} bytes, measured_bytes "
+          f"{[int(b) for b in qmets['measured_bytes']]}")
+    check(qcounts["quantize_bf16"] == 2 * 4 * LM_K * 2 and qcounts["quantize"] == 0, f"B4 launched {qcounts}")
+    del qstate, qmets
+    out = dict(block_topk_bf16=counts["block_topk_bf16"], quantize_bf16=qcounts["quantize_bf16"], times=times)
+
+    # (d) the fused exchange at full width, or its refusal there; (e) at the smoke width
+    if max(most.values()) <= kpad:
+        out.update(lm_fused_full(problem, topo, tcfg, x0, y0))
+    else:
+        lm_fused_full_raises(problem, topo, tcfg, x0, y0, max(most.values()), kpad)
+    del problem, x0, y0
+    smoke = lm_fused_smoke(dev)
+    out.update({k: v for k, v in smoke.items() if k not in out})
+    lm_card_against_host(dev)
+    return out
+
+
+def lm_kernel_times(resid: torch.Tensor, cfg) -> dict:
+    """B1 bf16, B4 bf16 and B2 on phase 12's own inputs: ``resid`` is the
+    (m, 3,072, 32,064) bf16 lm_head residual of the run's final state, the
+    leaf every top-k and quantizer launch of the run reads in place, and
+    one node's slice of it, as the wire meter packs it (f32 tiles).  Each
+    bit for bit against its plain version, timed beside its bound and, for
+    B1, an exact top-k by torch.topk."""
+    from repro_torch.kernels.pack_residuals import pack_sparse_blocks, pack_sparse_blocks_ref
+    from repro_torch.kernels.quantize import quantize_leaf
+    from repro_torch.kernels.ref import block_topk_ref
+    from repro_torch.kernels.topk_compress import block_topk_leaf
+
+    block = cfg.comp_block
+    k = max(1, int(round(cfg.comp_ratio * block)))
+    flat = resid.reshape(resid.shape[0], -1)
+    m, d = flat.shape
+    check(d % block == 0, f"the lm_head leaf ({d}) is not whole blocks")
+    tiles = flat.reshape(-1, block)
+    nbytes = flat.numel() * flat.element_size()
+    out = {}
+    got = block_topk_leaf(flat, k, block)
+    want = block_topk_ref(tiles, k).reshape(m, d)
+    torch.cuda.synchronize()
+    check(same(got, want), "B1 bf16 on the lm_head leaf differs from its plain version")
+
+    def lib():
+        keep = torch.topk(tiles.abs(), k, dim=1).indices
+        return torch.zeros_like(tiles).scatter_(1, keep, tiles.gather(1, keep))
+
+    out["block_topk_bf16"] = dict(
+        shape=[m, d], k=k, max_abs_err=float((got.float() - want.float()).abs().max()),
+        **timed(lambda: block_topk_leaf(flat, k, block), iters=10),
+        plain_ms=timed(lambda: block_topk_ref(tiles, k), iters=1, warmup=1)["ms"],
+        bound_ms=bound_ms(2 * nbytes), bound_by="bytes", library_ms=timed(lib, iters=3, warmup=1)["ms"],
+        library="exact top-k: torch.topk + scatter (not bisection)")
+    del got, want
+    u = torch.rand(tiles.shape, generator=torch.Generator(device=flat.device).manual_seed(5), device=flat.device,
+                   dtype=flat.dtype)
+    got = quantize_leaf(flat, u, 4, block)
+    want = quant_leaf_want(flat, u, 4, block)
+    torch.cuda.synchronize()
+    check(same(got, want), "B4 bf16 on the lm_head leaf differs from its plain version")
+    out["quantize_bf16"] = dict(
+        shape=[m, d], bits=4, max_abs_err=float((got.float() - want.float()).abs().max()),
+        **timed(lambda: quantize_leaf(flat, u, 4, block), iters=10),
+        plain_ms=timed(lambda: quant_leaf_want(flat, u, 4, block), iters=1, warmup=1)["ms"],
+        bound_ms=bound_ms(3 * nbytes), bound_by="bytes", library_ms=None)
+    del got, want, u
+    q = block_topk_leaf(flat[:1], k, block).reshape(-1, block).to(torch.float32)
+    kk = max(1, int(torch.count_nonzero(q, dim=1).max()))
+    vals, idx = pack_sparse_blocks(q, kk, block)
+    rvals, ridx = pack_sparse_blocks_ref(q, kk, block)
+    torch.cuda.synchronize()
+    check(same(vals, rvals) and torch.equal(idx, ridx), "B2 on one node's lm_head leaf differs from its plain version")
+    out["pack_sparse_blocks"] = dict(
+        shape=list(q.shape), k=kk, max_abs_err=float((vals - rvals).abs().max()),
+        **timed(lambda: pack_sparse_blocks(q, kk, block), iters=10),
+        plain_ms=timed(lambda: pack_sparse_blocks_ref(q, kk, block), iters=1, warmup=1)["ms"],
+        bound_ms=bound_ms(q.numel() * 4 + vals.numel() * 8), bound_by="bytes", library_ms=None)
+    for name, entry in out.items():
+        print(f"[lm kernels] {name} on phase 12's lm_head: {entry}")
+    return out
+
+
+def profile_lm_round(problem, topo, cfg, state) -> None:
+    """One warm round from ``state``, then a profiled one: its wall, the
+    device busy share, the B1 bf16 launches (2 leaves x 4 K) and the device
+    time by kernel."""
+    from repro_torch.core.c2dfb import c2dfb_round
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c2dfb_round(state, None, problem, topo, cfg)
+    torch.cuda.synchronize()
+    print(f"[lm round] warm round wall {time.perf_counter() - t0!r} s")
+    events, wall, ops = device_window(lambda: c2dfb_round(state, None, problem, topo, cfg), 1)
+    busy = busy_us(events)
+    by_name: dict[str, list] = {}
+    for e in events:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us()
+        acc[1] += 1
+    launches = sum(n for name, (_, n) in by_name.items() if "topk_kernel" in name)
+    gemm = sum(us for name, (us, _) in by_name.items() if "gemm" in name.lower() or "xmma" in name.lower()
+               or "cutlass" in name.lower())
+    print(f"[lm round] profiled round: wall {wall!r} s, device busy {busy / 1e6!r} s ({busy / 1e6 / wall:.3f} of the "
+          f"wall), {len(events)} device activities, {launches} topk_kernel launches, GEMM kernels {gemm / 1e3:.3f} ms, "
+          f"{ops['aten::bmm']} bmm, {ops['aten::mm']} mm")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"[lm round]   {us / 1e3:10.3f} ms  {n:5d}x  {name[:90]}")
+    check(launches == 2 * 4 * cfg.K, f"a round launched B1 {launches} times, want {2 * 4 * cfg.K}")
+
+
+@contextlib.contextmanager
+def unpack_bases():
+    """Within the block, every B3 leaf-entry launch of the fused exchange
+    counted by the dtype of the leaf it writes (its base's)."""
+    from repro_torch.transport import device as D
+
+    bases: dict = {}
+    leaf = D._unpack_leaf
+
+    def counting(v, i, like, block, base=None):
+        key = str((base if base is not None else like).dtype).removeprefix("torch.")
+        bases[key] = bases.get(key, 0) + 1
+        return leaf(v, i, like, block, base=base)
+
+    D._unpack_leaf = counting
+    try:
+        yield bases
+    finally:
+        D._unpack_leaf = leaf
+
+
+def lm_fused_full(problem, topo, cfg, x0, y0) -> dict:
+    """run(transport=DeviceTransport(fused=True)) at full width, T = 1: B1
+    bf16 2 x 4 K, B2 2 x 4 K (one a leaf a broadcast), B3 3 x 2 x 4 K (the
+    ring's two shifts and the sender's own reference), every B3 base bf16;
+    each round's wire bytes the degree sum of its node bytes."""
+    from repro_torch.transport import DeviceTransport
+
+    with unpack_bases() as bases:
+        transport = DeviceTransport(fused=True)
+        reports = _recording_meter(transport)
+        state, mets, counts, wall, peak = _lm_run(problem, topo, cfg, x0, y0, 1, transport=transport)
+    n = 2 * 4 * cfg.K
+    print(f"[lm fused] 1 round in {wall!r} s (body {float(mets['wall_seconds'][0])!r} s, meter "
+          f"{float(mets['meter_seconds'][0])!r} s), launches {counts}, B3 by base dtype {bases}, peak {peak} bytes, "
+          f"measured_bytes {int(mets['measured_bytes'][0])}, wire_bytes {int(mets['wire_bytes'][0])}")
+    check(counts["block_topk_bf16"] == n and counts["pack_sparse_blocks"] == n, f"the fused run launched {counts}")
+    check(counts["unpack_sparse_blocks"] == 3 * n and bases == {"bfloat16": 3 * n}, f"B3: {counts}, bases {bases}")
+    deg = [len(nb) for nb in topo.neighbors]
+    check(sum(d * b for v in reports[0].values() for d, b in zip(deg, v)) == int(mets["wire_bytes"][0]),
+          "the fused run's wire bytes are not the degree sum of its node bytes")
+    return dict(pack_sparse_blocks=counts["pack_sparse_blocks"], unpack_sparse_blocks=counts["unpack_sparse_blocks"])
+
+
+def lm_fused_full_raises(problem, topo, cfg, x0, y0, most: int, kpad: int) -> None:
+    """Where a block of the run held more than kpad survivors, the fused
+    exchange at full width must refuse to drop any: its first pack of such
+    a block raises a ValueError that names the block's count and kpad."""
+    from repro_torch.transport import DeviceTransport
+
+    try:
+        _lm_run(problem, topo, cfg, x0, y0, 1, transport=DeviceTransport(fused=True))
+    except ValueError as err:
+        got = re.search(r"a block holds (\d+) survivors .* kpad = (\d+)", str(err))
+        check(got is not None and int(got.group(1)) > kpad and int(got.group(2)) == kpad,
+              f"the fused exchange raised without the counts: {err}")
+        print(f"[lm fused] at full width the fused exchange refuses, as it must: {err} (the run's most: {most})")
+        return
+    fail(f"the fused exchange ran at full width though a block held {most} survivors, kpad {kpad}")
+
+
+def lm_fused_smoke(dev) -> dict:
+    """phi3-smoke (SMOKE of the same file), m = 4, B = 4, S = 128, K = 5,
+    kernel_topk, T = 2: the fused exchange bit for bit the dense one (every
+    state tensor, every metric but the clocks, every node's bytes), B3's
+    launches counted by their bases' dtype (all bf16).  Returns the fused
+    run's B2 and B3 launches."""
+    from repro_torch.async_gossip.compiled import _tensors
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import ring
+    from repro_torch.transport import DeviceTransport
+
+    cfg = get_config(LM_ARCH, smoke=True)
+    problem, x0, y0 = lm_problem(cfg, LM_M, LM_B, LM_S, dev)
+    ccfg = lm_c2dfb("kernel_topk")
+    runs = {}
+    for fused in (True, False):
+        tr = DeviceTransport(fused=fused, chunk=1 << 16)
+        reports = _recording_meter(tr)
+        with unpack_bases() as bases:
+            state, mets, counts, wall, _ = _lm_run(problem, ring(LM_M), ccfg, x0, y0, 2, transport=tr)
+        runs[fused] = (state, mets, reports, counts, bases)
+        print(f"[lm smoke] {cfg.name} {'fused' if fused else 'dense'}: 2 rounds in {wall!r} s, launches {counts}, "
+              f"B3 by base dtype {bases}")
+    (sf, mf, rf, cf, bf), (sd, md, rd, _, bd) = runs[True], runs[False]
+    n = 2 * 2 * 4 * ccfg.K
+    check(cf["pack_sparse_blocks"] == n and cf["unpack_sparse_blocks"] == 3 * n and cf["block_topk_bf16"] == n
+          and bf == {"bfloat16": 3 * n} and bd == {}, f"phi3-smoke: the fused run launched {cf}, B3 onto {bf}")
+    check(all(_same_bits(a, b) for a, b in zip(_tensors(sf), _tensors(sd))), "phi3-smoke: fused state != dense")
+    for k, v in mf.items():
+        if k not in ("wall_seconds", "meter_seconds", "sim_seconds"):
+            check(_same_bits(v, md[k]), f"phi3-smoke: metric {k} differs between fused and dense")
+    check(rf == rd, "phi3-smoke: a node's executed bytes differ between fused and dense")
+    print(f"[lm smoke] fused and dense bit-identical (state, metrics, {sum(len(r) for r in rf)} phases of node bytes)")
+    return dict(pack_sparse_blocks=cf["pack_sparse_blocks"], unpack_sparse_blocks=cf["unpack_sparse_blocks"])
+
+
+def lm_card_against_host(dev) -> None:
+    """lm-test (bf16), m = 8, B = 2, S = 32, K = 2, kernel_topk at 0.1 of
+    blocks of 512, T = 2: the host steps its rounds and records its top-k
+    selections; the card runs each round on the host's round-t state keeping
+    them (a parted row must be a near-tie), and every field lies within the
+    tests' bf16 bound of the host's."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import selection
+    from repro_torch.core.c2dfb import c2dfb_round, init_state
+    from repro_torch.core.topology import ring
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels import _build
+
+    cfg = ModelConfig(**LM_TEST)
+    ccfg = lm_c2dfb("kernel_topk", K=2, ratio=0.1, block=512)
+    probs = {d: lm_problem(cfg, 8, 2, 32, d) for d in ("cpu", dev)}
+    hp, hx, hy = probs["cpu"]
+    for a, b in zip(tree_leaves(hx) + tree_leaves(hy), tree_leaves(probs[dev][1]) + tree_leaves(probs[dev][2])):
+        check(a.dtype == b.dtype and a.shape == b.shape, "the card's and the host's parameters differ in shape")
+    state = init_state(hp, ccfg, hx, hy)  # the host's parameters: the generators differ by device
+    seen = selection.Partings()
+    worst = 0.0
+    _build.reset_launch_counts()
+    for t in range(2):
+        log = []
+        with selection.recorded(log):
+            want, _ = c2dfb_round(state, None, hp, ring(8), ccfg)
+        on_card = _to(state, dev)
+        with selection.imposed([(r.to(dev), k.to(dev)) for r, k in log], seen):
+            got, _ = c2dfb_round(on_card, None, probs[dev][0], ring(8), ccfg)
+        fields = dict(x=(got.x, want.x), s_x=(got.s_x, want.s_x), u=(got.u_prev, want.u_prev),
+                      y=(got.inner_y.d, want.inner_y.d), y_s=(got.inner_y.s, want.inner_y.s),
+                      z=(got.inner_z.d, want.inner_z.d), z_s=(got.inner_z.s, want.inner_z.s))
+        grads = dict(y_s=want.inner_y.g_prev, z_s=want.inner_z.g_prev)
+        for name, (g, w) in fields.items():
+            factor = 1 + 2 * ccfg.lam if name in ("s_x", "u") else 1
+            for a, b, s in zip(tree_leaves(g), tree_leaves(w), tree_leaves(grads.get(name, w))):
+                scale = max(float(b.float().abs().max()), float(s.float().abs().max()))
+                err = float((a.cpu().float() - b.float()).abs().max())
+                bound = factor * BF16_STEPS * scale
+                worst = max(worst, err / bound if bound else 0.0)
+                check(err <= bound, f"lm-test round {t} {name}: card {err!r} off the host, bound {bound!r}")
+        state = want
+    counts = _build.launch_counts()
+    check(counts["block_topk_bf16"] == 2 * 2 * 4 * 2, f"lm-test on the card launched {counts}")
+    print(f"[lm host] lm-test card against host, 2 rounds on the host's states: within the bf16 bound (largest "
+          f"{worst:.3f} of it), {seen.rows} parted rows (near-ties), launches {counts}")
+
+
+def _to(tree, dev):
+    from repro_torch.transport.device import _on
+
+    return _on(tree, torch.device(dev))
+
+
+def run_only(dev, only: list) -> int:
+    """``--only c4,lm``: the named checks alone, in that order, after the
+    build (for working on one of them): "c4" phase 4's kernel_topk run and
+    phase 11's fused round on its states, "lm" phase 12.  No result
+    lines."""
+    for name in only:  # in the order given
+        if name == "c4":
+            bundle = build_task(dev)
+            *_, main_mets = phase_main_path(dev, bundle, CFG, "block_topk")
+            fused_on_run_states(dev, bundle, main_mets)
+            del bundle
+        elif name == "lm":
+            print(f"[only] phase 12: {phase_lm(dev)}")
+        else:
+            fail(f"--only takes c4 and lm, not {name!r}")
+    print(f"[only] {only} passed")
+    return 0
+
+
 def main() -> int:
+    only = sys.argv[2].split(",") if sys.argv[1:2] == ["--only"] else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2257,6 +2832,8 @@ def main() -> int:
     for (src, fn), (regs, st, ld) in sorted(ptxas.items()):
         print(f"[build] {src}: {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
     check(ptxas and not any(st or ld for _, st, ld in ptxas.values()), "a kernel spills registers (or ptxas said nothing)")
+    if only:
+        return run_only(dev, only)
 
     # 3. kernels at main-path shapes (and B2 and B3 at phase 11's stacked shapes)
     stacked = transport_kernel_times(dev)
@@ -2314,6 +2891,18 @@ def main() -> int:
     for name, n in transport.items():
         kernels[name]["transport_launches"] = n
     del bundle
+    # 12. the dense LM bilevel run: phi3-mini at its published width, bf16 leaves through B1 and B4 on a main path
+    lm = phase_lm(dev)
+    kernels["block_topk"]["bf16"]["lm_head"] = lm["times"]["block_topk_bf16"]
+    kernels["quantize"]["bf16"]["lm_head"] = lm["times"]["quantize_bf16"]
+    kernels["pack_sparse_blocks"]["lm_head"] = lm["times"]["pack_sparse_blocks"]
+    kernels["block_topk"]["bf16"]["bf16_phase_launches"] = kernels["block_topk"]["bf16"]["launches"]
+    kernels["quantize"]["bf16"]["bf16_phase_launches"] = kernels["quantize"]["bf16"]["launches"]
+    kernels["block_topk"]["bf16"]["launches"] = lm["block_topk_bf16"]
+    kernels["quantize"]["bf16"]["launches"] = lm["quantize_bf16"]
+    for name in ("pack_sparse_blocks", "unpack_sparse_blocks"):
+        if name in lm:
+            kernels[name if name == "pack_sparse_blocks" else "unpack_sparse_blocks_into"]["lm_launches"] = lm[name]
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

@@ -2,12 +2,14 @@
 reference).
 
 The layout mirrors ``repro``: ``core`` (trees, topology, gossip, oracles,
-compressors, Algorithm 2 inner loop, Algorithm 1 outer loop), ``data``
-(the paper's two tasks), ``kernels`` (hand-written Hopper kernels with
-plain PyTorch versions beside them), ``net`` (exact wire codecs, the
-network fabric, topology schedules), ``obs`` (telemetry), ``async_gossip``
-(the eager asynchronous engine) and ``transport`` (the simulated
-transport the async scheduler reads arrivals through).
+compressors, Algorithm 2 inner loop, Algorithm 1 outer loop, the LM
+bilevel split), ``configs`` (the LM architectures), ``data`` (the paper's
+two tasks and the synthetic token streams), ``kernels`` (hand-written
+Hopper kernels with plain PyTorch versions beside them), ``models`` (the
+dense decoder transformer), ``net`` (exact wire codecs, the network
+fabric, topology schedules), ``obs`` (telemetry), ``async_gossip`` (the
+asynchronous engine) and ``transport`` (the simulated and the device
+transports).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit ``device="cpu"`` they raise.  Importing this

@@ -1,0 +1,39 @@
+"""mixtral-8x22b — 8-expert top-2 MoE, GQA kv=8, sliding window. [arXiv:2401.04088]"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x22b",
+    arch_type="moe",
+    num_layers=56,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab_size=32768,
+    pattern=("swa",),
+    window=4096,
+    num_experts=8,
+    num_experts_per_tok=2,
+    moe_period=1,
+    source="arXiv:2401.04088",
+)
+
+SMOKE = ModelConfig(
+    name="mixtral22-smoke",
+    arch_type="moe",
+    num_layers=2,
+    d_model=256,
+    num_heads=4,
+    num_kv_heads=2,
+    head_dim=64,
+    d_ff=512,
+    vocab_size=512,
+    pattern=("swa",),
+    window=64,
+    num_experts=4,
+    num_experts_per_tok=2,
+    moe_period=1,
+    source="arXiv:2401.04088",
+)

@@ -214,7 +214,11 @@ def c2dfb_round(
 
 
 def _host(v):
-    return v.detach().cpu().numpy() if torch.is_tensor(v) else v
+    """A tensor as host numpy (a bf16 one as f32, which holds it exactly)."""
+    if not torch.is_tensor(v):
+        return v
+    v = v.detach()
+    return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
 
 
 def price_round(fabric, phases_and_labels, W_override, round_idx: int, metrics: dict) -> None:

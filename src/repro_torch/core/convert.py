@@ -1,7 +1,7 @@
 """Carry arrays and states across from the JAX reference.
 
 ``from_numpy(tree, device)`` turns numpy (or any ``np.asarray``-able, e.g.
-JAX) arrays, dicts of them, and the reference's state tuples (C2DFB's
+JAX) arrays, dicts and lists of them (an LM's parameter tree), and the reference's state tuples (C2DFB's
 ``C2DFBState`` / ``InnerState`` and the baselines' ``MDBOState``,
 ``MADSBOState``, ``NCInnerState``, ``C2DFBncState``, ``F2SAState``) into the
 port's tensors and states, so a test can start both packages from the same
@@ -43,11 +43,14 @@ def from_numpy(tree, device: str | torch.device = "cpu"):
         ))
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [from_numpy(v, device) for v in tree]
     return _tensor(tree, device)
 
 
 def to_numpy(tree: Tree):
-    """The port's tensors (or a dict of them) -> float32/int numpy arrays."""
+    """The port's tensors (or a dict or list of them) -> float32/int numpy
+    arrays."""
     def leaf(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

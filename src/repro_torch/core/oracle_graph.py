@@ -25,7 +25,11 @@ invariant inputs.  Then:
   expression, one key space for all of a problem's graphs, and each is
   computed once while x stays the same tensors: the hyper-representation
   backbone's forward runs once per data shard and round, not in every
-  oracle call.
+  oracle call.  A recompute (`repro_torch.models.remat`) starts from
+  ``barrier`` nodes, so its expressions differ from the forward's it
+  repeats and the two are not merged, while two recomputes of the same
+  inputs are, as XLA treats the reference's recompute behind its
+  optimization barrier.
 
 The losses must be pure functions of (x, v) and the problem's data (which
 the traces capture as constants).  The gradients equal the untraced
@@ -50,6 +54,8 @@ def _signature(tree: Tree):
     """A hashable (structure, shapes, dtypes, devices) of a tree."""
     if isinstance(tree, dict):
         return tuple((k, _signature(tree[k])) for k in sorted(tree))
+    if isinstance(tree, list):
+        return ("list",) + tuple(_signature(item) for item in tree)
     return (tuple(tree.shape), tree.dtype, tree.device)
 
 

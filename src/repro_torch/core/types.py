@@ -2,10 +2,12 @@
 
 Conventions
 -----------
-* A tree is a tensor or a dict of trees.  Dicts iterate in SORTED-KEY
-  order, as ``jax.tree`` does, so a tree flattens to the same leaf order in
-  both packages (the hyper-representation backbone ``{w1, b1, w2, b2}``
-  flattens as ``b1, b2, w1, w2``).
+* A tree is a tensor, a dict of trees or a list of trees.  Dicts iterate in
+  SORTED-KEY order and lists in order, as ``jax.tree`` does, so a tree
+  flattens to the same leaf order in both packages (the
+  hyper-representation backbone ``{w1, b1, w2, b2}`` flattens as ``b1, b2,
+  w1, w2``; an LM's ``{"embed", "blocks": [block_0, ...], ...}`` as
+  ``blocks[0]``'s leaves, ``blocks[1]``'s, ..., then ``embed``).
 * "node-stacked": every leaf carries a leading axis of size ``m`` (the
   number of decentralized nodes); ``x[i]`` is node *i*'s copy.
 * The helpers are pure: they return new tensors and never update their
@@ -18,12 +20,14 @@ from typing import Any, Callable, Iterable
 
 import torch
 
-Tree = Any  # torch.Tensor | dict[str, Tree]
+Tree = Any  # torch.Tensor | dict[str, Tree] | list[Tree]
 
 
 def tree_leaves(tree: Tree) -> list[torch.Tensor]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
     return [tree]
 
 
@@ -32,6 +36,8 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
         return {
             k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)
         }
+    if isinstance(tree, list):
+        return [tree_map(fn, item, *(r[i] for r in rest)) for i, item in enumerate(tree)]
     return fn(tree, *rest)
 
 

@@ -1,0 +1,187 @@
+"""GQA attention: causal / sliding-window / cross / bidirectional, train,
+prefill and decode (``repro.models.attention``'s counterpart).
+
+Node-stacked as `repro_torch.models.layers`: parameters, activations and
+caches carry a leading node axis ``m``; positions are (B, S), the same for
+every node.
+
+Ported op by op, in the reference's dtypes:
+
+* the scores are a product in the activations' dtype (bf16 in, bf16 out,
+  as ``jnp.einsum`` of bf16 gives), cast to f32 and divided by
+  sqrt(head_dim), then soft-capped (Gemma 2's ``attn_softcap``);
+* masked positions take ``NEG_INF`` = -2e38; the softmax runs in f32 and
+  is cast to v's dtype before the second product.
+
+No fused attention kernel (``scaled_dot_product_attention``,
+``flex_attention``) stands in for it: neither has the logit soft-cap, and
+either would change the products that ``compute_flops`` counts.
+
+Prefill and train attention loop over QUERY CHUNKS (``q_chunk``) so the
+score tensor never exceeds (m, B, H, q_chunk, S); each chunk's scores are
+recomputed in the backward pass (`repro_torch.models.remat.checkpoint`),
+as the reference's ``jax.checkpoint`` does.  Decode reads a KV cache
+(m, B, S_max, KV, hd); a sliding-window cache is a ring buffer of the
+window's size, RoPE applied at insertion with absolute positions, each
+slot's absolute position kept in ``slot_pos``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import apply_rope, dense_init, linear, softcap
+from repro_torch.models.remat import checkpoint
+
+NEG_INF = -2.0e38
+
+
+def attn_init(generator: torch.Generator, cfg, kind: str) -> dict:
+    """One attention layer's weights (wq, wk, wv, wo, drawn in that order),
+    plus zero q/k/v biases when ``cfg.qkv_bias``."""
+    d, dt = cfg.d_model, cfg.dtype
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(generator, d, H * hd, dt),
+        "wk": dense_init(generator, d, KV * hd, dt),
+        "wv": dense_init(generator, d, KV * hd, dt),
+        "wo": dense_init(generator, H * hd, d, dt),
+    }
+    if cfg.qkv_bias:
+        dev = generator.device
+        p["bq"] = torch.zeros((H * hd,), dtype=dt, device=dev)
+        p["bk"] = torch.zeros((KV * hd,), dtype=dt, device=dev)
+        p["bv"] = torch.zeros((KV * hd,), dtype=dt, device=dev)
+    return p
+
+
+def _project_qkv(p, cfg, x, positions, memory=None, rope=True):
+    """x (m, B, S, D) -> q (m, B, S, H, hd), k and v (m, B, Sk, KV, hd)."""
+    m, B = x.shape[0], x.shape[1]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = linear(x, p["wq"])
+    kv_src = memory if memory is not None else x
+    k = linear(kv_src, p["wk"])
+    v = linear(kv_src, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"][:, None, None]
+        k = k + p["bk"][:, None, None]
+        v = v + p["bv"][:, None, None]
+    q = q.reshape(m, B, -1, H, hd)
+    k = k.reshape(m, B, -1, KV, hd)
+    v = v.reshape(m, B, -1, KV, hd)
+    if rope and cfg.use_rope and memory is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _gqa_scores(q, k, cfg):
+    """q: (m, B, Sq, H, hd), k: (m, B, Sk, KV, hd) -> (m, B, KV, H//KV, Sq, Sk), f32."""
+    m, B, Sq, H, hd = q.shape
+    KV = k.shape[3]
+    qg = q.reshape(m, B, Sq, KV, H // KV, hd)
+    scores = torch.einsum("nbqkgh,nbskh->nbkgqs", qg, k).to(torch.float32)
+    # a tensor made by an operator, not a constant: the oracle graphs share
+    # what reads x alone by expression, and a constant is a new one in each
+    # trace (and a divisor, as XLA divides, where a Python number multiplies
+    # by its reciprocal on the card)
+    scores = scores / torch.sqrt(torch.full((), float(hd), dtype=torch.float32, device=scores.device))
+    return softcap(scores, cfg.attn_softcap)
+
+
+def _gqa_out(probs, v):
+    """probs: (m, B, KV, G, Sq, Sk), v: (m, B, Sk, KV, hd) -> (m, B, Sq, H*hd)."""
+    out = torch.einsum("nbkgqs,nbskh->nbqkgh", probs, v)
+    return out.reshape(out.shape[0], out.shape[1], out.shape[2], -1)
+
+
+def _chunk_attn(q_c, qpos_c, k, v, kpos, cfg, kind):
+    """One query chunk: scores, mask, softmax and the weighted values."""
+    scores = _gqa_scores(q_c, k, cfg)  # (m, B, KV, G, qc, Sk)
+    if kind in ("full", "swa"):
+        mask = qpos_c[:, :, None] >= kpos[:, None, :]  # causal (B, qc, Sk)
+        if kind == "swa" and cfg.window:
+            mask &= (qpos_c[:, :, None] - kpos[:, None, :]) < cfg.window
+        scores = torch.where(mask[None, :, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return _gqa_out(probs, v)
+
+
+def attn_apply(p, cfg, x, positions, kind="full", memory=None, q_chunk=1024):
+    """Training / prefill attention.  Returns (out, (k, v)); k and v feed
+    caches.
+
+    kind: "full" causal, "swa" causal window, "cross" (no mask, kv from
+    ``memory``), "bidir" (encoder, no mask)."""
+    S = x.shape[2]
+    q, k, v = _project_qkv(
+        p, cfg, x, positions, memory=memory if kind == "cross" else None, rope=kind != "cross",
+    )
+    kpos = positions if kind != "cross" else None
+    q_chunk = min(q_chunk, S)
+    assert S % q_chunk == 0, (S, q_chunk)
+    outs = []
+    for c in range(max(1, S // q_chunk)):
+        sl = slice(c * q_chunk, (c + 1) * q_chunk)
+        (out,) = checkpoint(_chunk_attn, q[:, :, sl], positions[:, sl], k, v, kpos, cfg, kind)
+        outs.append(out)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return linear(out, p["wo"]), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def make_cache(cfg, m: int, batch: int, s_max: int, kind="full", dtype=None, device=None) -> dict:
+    """One attention layer's cache, node-stacked (callers stack over layers)."""
+    dt = dtype or cfg.dtype
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    size = cfg.window if (kind == "swa" and cfg.window) else s_max
+    size = min(size, s_max)
+    return {
+        "k": torch.zeros((m, batch, size, KV, hd), dtype=dt, device=device),
+        "v": torch.zeros((m, batch, size, KV, hd), dtype=dt, device=device),
+        "slot_pos": torch.full((size,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def cache_specs(kind: str) -> dict:
+    """The cache tree's logical axes, as the reference names them (the node
+    axis in front is not one of them)."""
+    return {
+        "k": ("batch", "cache_seq", None, None),
+        "v": ("batch", "cache_seq", None, None),
+        "slot_pos": (None,),
+    }
+
+
+def attn_decode(p, cfg, x_t, cache, pos: int, kind="full", memory=None):
+    """One-token decode.  x_t: (m, B, 1, D); pos: the absolute position.
+    Returns (out (m, B, 1, D), new_cache); the cache given is not changed."""
+    B = x_t.shape[1]
+    if kind == "cross":  # the memory is fixed: no cache update
+        q, k, v = _project_qkv(p, cfg, x_t, None, memory=memory, rope=False)
+        probs = torch.softmax(_gqa_scores(q, k, cfg), dim=-1).to(v.dtype)
+        return linear(_gqa_out(probs, v), p["wo"]), cache
+
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x_t.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x_t, posv)
+    size = cache["k"].shape[2]
+    # a full cache has size s_max > pos, so slot = pos; a window's ring cycles
+    slot = pos % size
+    k_cache, v_cache, slot_pos = cache["k"].clone(), cache["v"].clone(), cache["slot_pos"].clone()
+    k_cache[:, :, slot] = k_new[:, :, 0]
+    v_cache[:, :, slot] = v_new[:, :, 0]
+    slot_pos[slot] = pos
+
+    scores = _gqa_scores(q, k_cache, cfg)  # (m, B, KV, G, 1, size)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if kind == "swa" and cfg.window:
+        valid &= slot_pos > (pos - cfg.window)
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = _gqa_out(probs, v_cache)
+    return linear(out, p["wo"]), {"k": k_cache, "v": v_cache, "slot_pos": slot_pos}

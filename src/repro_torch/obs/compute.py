@@ -23,7 +23,12 @@ Three layers, as in the reference:
    reference walks the compiled HLO of a round that XLA has rid of dead
    code and loop-invariant work; the port's oracles do the same to their
    traced gradients (`repro_torch.core.oracle_graph`), so both fields
-   equal the reference's.  ``collective_bytes`` and ``compile_seconds``
+   equal the reference's.  On the LM bilevel problem
+   (`repro_torch.core.lm_bilevel`) every oracle's count equals the
+   reference's, the recompute of its checkpointed regions included
+   (`repro_torch.models.remat`); a round's is one y-gradient of g and its
+   backbone forward below the reference's, whose XLA round places that
+   work once more (ROADMAP §C).  ``collective_bytes`` and ``compile_seconds``
    have no counterpart here and stay None.  Where the reference's round
    body is a ``lax.cond`` (the async engine's zero-age fast path), XLA
    adds up both branches; the port's round 0 runs one, and `meta_cost`

@@ -43,10 +43,12 @@ from repro_torch.transport.device import DeviceTransport, make_device_round
 
 
 def _numpy(tree):
-    """A payload stack (tensors, dicts, (vals, idx) tuples) as host numpy."""
+    """A payload stack (tensors, dicts, lists, (vals, idx) tuples) as host
+    numpy; a bf16 leaf comes as f32, which holds it exactly (numpy has no
+    bf16)."""
     if isinstance(tree, tuple):
         return tuple(_numpy(t) for t in tree)
-    return tree_map(lambda v: v.detach().cpu().numpy(), tree)
+    return tree_map(lambda v: (v.detach().float() if v.dtype == torch.bfloat16 else v.detach()).cpu().numpy(), tree)
 
 
 def run_c2dfb_transport(
@@ -204,7 +206,7 @@ def run_c2dfb_transport(
             # host wire metering (codec encode and verify of every message):
             # the fused path assembles records here instead of dense payloads
             "meter_seconds": meter_wall,
-            "x_node_dist": node_consensus_dist(x).cpu().numpy(),
+            "x_node_dist": node_consensus_dist(x).float().cpu().numpy(),
         }
         rows.append(row)
         if obs is not None:

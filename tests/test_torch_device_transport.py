@@ -16,7 +16,18 @@ device), as tests/test_transport.py runs it:
 * the ``BENCH_transport.json`` gate config (m = 4, K = 4, T = 3, n = 200,
   p = 30, ring, wan, top-k 0.3): the port's sim and device ``wire_bytes``
   equal the reference's live figures (the committed 147,456 and 147,696
-  came from jax 0.4.37)."""
+  came from jax 0.4.37);
+* ``verify=False`` and ``axis=``, which both packages take: the meters skip
+  the decode check, and the bytes and the state are ``verify=True``'s
+  and the reference's unverified run's;
+* the fused round on ``run()``'s own round-t states, round by round (the
+  reference's states, stepped live in process): run()'s round records its
+  top-k selections, the fused round keeps them, and every row where its
+  own choice parts is a near-tie (`repro_torch.core.selection`); then
+  the two rounds agree within rtol 1e-4 / atol 1e-6, and the fused round
+  equals c2dfb_round with the exchange's mixing form in value.
+
+About 60 s on one worker, most of it the reference's subprocess."""
 
 import dataclasses
 import json
@@ -24,16 +35,26 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
+import torch
 
+from repro.core import c2dfb as J
+from repro.core import topology as jtopo
+from repro.data import bilevel_tasks as jtasks
+from repro_torch.async_gossip.compiled import _tensors
+from repro_torch.core import c2dfb as pc2dfb
+from repro_torch.core import inner_loop as pinner
+from repro_torch.core import selection
+from repro_torch.core.gossip import mix_delta_shard
 from repro_torch.core import topology as ptopo
-from repro_torch.core.c2dfb import C2DFBConfig, run
+from repro_torch.core.c2dfb import C2DFBConfig, c2dfb_round, run
 from repro_torch.core.convert import from_numpy, to_numpy
 from repro_torch.data import bilevel_tasks as ptasks
 from repro_torch.net import make_fabric
 from repro_torch.obs import MemorySink
-from repro_torch.transport import DeviceTransport, SimTransport, run_c2dfb_transport
+from repro_torch.transport import DeviceTransport, SimTransport, make_device_round, mesh_for_nodes, run_c2dfb_transport
 
 RTOL, ATOL = 1e-4, 1e-6
 M, T = 4, 3
@@ -43,6 +64,7 @@ CFGS = {
     "block": dict(K=3, compressor="block_topk", comp_ratio=0.3, gamma_in=0.3, eta_in=0.3, comp_block=128),
 }
 RUNS = [(topo, cfg, fused) for topo in ("ring", "star") for cfg, fused in (("topk", False), ("block", False), ("block", True))]
+UNVERIFIED = [("ring", "topk", False), ("ring", "block", True)]
 GATE_TASK = dict(m=M, n=200, p=30, c=5, h=0.8, seed=0)
 GATE_CFG = dict(lam=10.0, eta_out=0.3, gamma_out=0.5, eta_in=0.3, gamma_in=0.3, K=4, compressor="topk", comp_ratio=0.3)
 
@@ -86,6 +108,17 @@ for topo_name, cfg_name, fused in spec["runs"]:
         "phase_node_bytes": [{k: list(v) for k, v in pl["node_bytes"].items()} for pl in mets["payloads"]],
         "bytes_by_stream": [r["bytes_by_stream"] for r in rows],
     }
+unverified = {}
+for topo_name, cfg_name, fused in spec["unverified"]:
+    st, mets = run_c2dfb_transport(b.problem, make_topology(topo_name, spec["task"]["m"]),
+                                   C2DFBConfig(**spec["cfgs"][cfg_name]), b.x0, b.y0, spec["T"], key,
+                                   DeviceTransport(fused=fused, verify=False, axis="nodes"), return_payloads=True)
+    unverified[f"{topo_name}/{cfg_name}/{fused}"] = {
+        "x": np.asarray(st.x).tolist(),
+        "wire_bytes": [int(v) for v in mets["wire_bytes"]],
+        "phase_node_bytes": [{k: list(v) for k, v in pl["node_bytes"].items()} for pl in mets["payloads"]],
+    }
+out["unverified"] = unverified
 g = coefficient_tuning_task(**spec["gate_task"])
 out["gate_x0"], out["gate_y0"] = np.asarray(g.x0).tolist(), np.asarray(g.y0).tolist()
 gate = {}
@@ -105,7 +138,7 @@ def reference():
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(os.path.dirname(__file__), "..", "src")] + env.get("PYTHONPATH", "").split(os.pathsep)
     )
-    spec = dict(task=TASK, cfgs=CFGS, runs=RUNS, T=T, gate_task=GATE_TASK, gate_cfg=GATE_CFG)
+    spec = dict(task=TASK, cfgs=CFGS, runs=RUNS, T=T, gate_task=GATE_TASK, gate_cfg=GATE_CFG, unverified=UNVERIFIED)
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT, json.dumps(spec)], capture_output=True, text=True, env=env, timeout=300,
     )
@@ -189,3 +222,88 @@ def test_gate_config_wire_bytes_equal_the_reference(reference):
         _, mets = run(b.problem, topo, C2DFBConfig(**GATE_CFG), b.x0, b.y0, T=3, device="cpu", transport=tr)
         got[name] = [int(v) for v in mets["wire_bytes"]]
     assert got == reference["gate"]
+
+
+@pytest.mark.parametrize("topo_name,cfg_name,fused", UNVERIFIED)
+def test_unverified_meters_give_the_verified_bytes_and_state(reference, port, topo_name, cfg_name, fused):
+    """``DeviceTransport(verify=False, axis=...)`` is accepted, keeps both,
+    and its run is the verified run's: the same state bit for bit, the same
+    executed bytes phase by phase, which are the reference's unverified
+    run's."""
+    name = f"{topo_name}/{cfg_name}/{fused}"
+    b = _bundle(TASK, reference["x0"], reference["y0"])
+    tr = DeviceTransport(fused=fused, verify=False, axis="ranks")
+    assert tr.verify is False and tr.axis == "ranks" and DeviceTransport().verify is True
+    st, mets = run_c2dfb_transport(b.problem, ptopo.make_topology(topo_name, M), C2DFBConfig(**CFGS[cfg_name]),
+                                   b.x0, b.y0, T, None, tr, device="cpu", return_payloads=True)
+    vst, vmets, _ = port[name]
+    for a, v in zip(_tensors(st), _tensors(vst)):
+        assert torch.equal(a, v)
+    got = [{k: list(v) for k, v in pl["node_bytes"].items()} for pl in mets["payloads"]]
+    assert got == [{k: list(v) for k, v in pl["node_bytes"].items()} for pl in vmets["payloads"]]
+    want = reference["unverified"][name]
+    assert got == want["phase_node_bytes"]
+    assert [int(v) for v in mets["wire_bytes"]] == want["wire_bytes"] == [int(v) for v in vmets["wire_bytes"]]
+    np.testing.assert_allclose(to_numpy(st.x), np.asarray(want["x"]), rtol=RTOL, atol=ATOL)
+
+
+# the fused round against run()'s round on run()'s own states: a wider task
+# than TASK, so that each leaf spans several blocks
+C4_TASK = dict(m=M, n=200, p=96, c=8, h=0.8, seed=0)
+STATE_FIELDS = ("x", "s_x", "u", "y", "y_hat", "y_s", "y_s_hat", "y_g", "z", "z_hat", "z_s", "z_s_hat", "z_g")
+# against the reference: the fields the runs above compare (a tracker sums
+# gradients of order 1 into entries of order 1e-3, where the packages'
+# rounding of the gradients alone reaches atol)
+REF_FIELDS = ("x", "s_x", "y", "y_hat", "z", "z_s_hat")
+C4_CFGS = {
+    "kernel_topk": dict(K=3, compressor="kernel_topk", comp_ratio=0.2, comp_block=128, gamma_in=0.3, eta_in=0.3),
+    "block_topk": dict(K=3, compressor="block_topk", comp_ratio=0.2, comp_block=128, gamma_in=0.3, eta_in=0.3),
+}
+
+
+@pytest.mark.parametrize("comp", sorted(C4_CFGS))
+@pytest.mark.parametrize("topo_name", ["ring", "star"])
+def test_fused_round_on_run_states_parts_only_at_near_ties(topo_name, comp, monkeypatch):
+    """Round by round on the reference's sync states (stepped live, in
+    process): the port's ``c2dfb_round`` on the round-t state records its
+    top-k selections; the fused device round on the same state keeps them,
+    every row where its own choice differs being a near-tie; both rounds
+    agree within rtol 1e-4 / atol 1e-6 in every field, and with the
+    reference's round t + 1 in the fields the runs above compare; and the
+    fused round equals, in value, c2dfb_round with the exchange's mixing
+    form (`mix_delta_shard`: the shifts or the gathered table) in place of
+    the dense (W - I) @ hat."""
+    jb = jtasks.coefficient_tuning_task(**C4_TASK)
+    pb = ptasks.coefficient_tuning_task(**C4_TASK, device="cpu")
+    cfg_kw = C4_CFGS[comp]
+    jcfg, cfg = J.C2DFBConfig(**cfg_kw), C2DFBConfig(**cfg_kw)
+    jtopo_, topo = jtopo.make_topology(topo_name, M), ptopo.make_topology(topo_name, M)
+    jstep = jax.jit(lambda s, k: J.c2dfb_round(s, k, jb.problem, jtopo_, jcfg))
+    jstates = [J.init_state(jb.problem, jcfg, jb.x0, jb.y0)]
+    for t in range(T):
+        jstates.append(jstep(jstates[-1], jax.random.PRNGKey(t))[0])
+    round_fn = make_device_round(pb.problem, topo, cfg, mesh_for_nodes(M, "cpu"), fused=True)
+    seen = selection.Partings()
+    for t in range(T):
+        state = from_numpy(jstates[t])
+        log = []
+        with selection.recorded(log):
+            want, _ = c2dfb_round(state, None, pb.problem, topo, cfg)
+        assert len(log) == 4 * cfg.K
+        with selection.imposed(log, seen):
+            x, s_x, u, iy, iz, _ = round_fn(state.x, state.s_x, state.u_prev, state.inner_y, state.inner_z, None)
+        got = [x, s_x, u, *iy, *iz]
+        # the exchange computes c2dfb_round with its own mixing form exactly
+        with selection.imposed(log), monkeypatch.context() as mp:
+            for mod in (pc2dfb, pinner):
+                mp.setattr(mod, "mix_delta_dense", lambda W, v: mix_delta_shard(topo, v))
+            ex, _ = c2dfb_round(state, None, pb.problem, topo, cfg)
+        for a, b in zip(got, [ex.x, ex.s_x, ex.u_prev, *ex.inner_y, *ex.inner_z]):
+            assert torch.equal(a, b), f"round {t}: the fused round differs from its mixing form's round"
+        for name, a, w in zip(STATE_FIELDS, got, [want.x, want.s_x, want.u_prev, *want.inner_y, *want.inner_z]):
+            np.testing.assert_allclose(to_numpy(a), to_numpy(w), rtol=RTOL, atol=ATOL, err_msg=f"round {t} {name}")
+        ref = jstates[t + 1]
+        for name, a, r in ((n, a, r) for n, a, r in zip(STATE_FIELDS, got, [
+                ref.x, ref.s_x, ref.u_prev, *ref.inner_y, *ref.inner_z]) if n in REF_FIELDS):
+            np.testing.assert_allclose(to_numpy(a), np.asarray(r), rtol=RTOL, atol=ATOL, err_msg=f"round {t} {name}")
+    assert seen.compressions == T * 4 * cfg.K and seen.of_allowance <= 1.0
