@@ -3,6 +3,7 @@
 against its plain PyTorch version.
 
     python3 chip_smoke.py          # from the repository root; needs one card
+    python3 chip_smoke.py --only archs   # the build, then phase 13 alone
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -91,7 +92,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    onto a base against today's three calls: the tile, the slice and the
    add) are held bit for bit and timed at the exchange's stacked shapes with
    phase 3.  The profiled round counts B3 by every kernel name it has and
-   prints its strided copies and adds.
+   prints its strided copies and adds;
+12. the dense LM bilevel run: C2DFB on phi3-mini-3.8b at its published
+   width, 2 of 32 layers, bf16 leaves, m = 4 on a ring, B = 4, S = 128,
+   K = 5 through run(): kernel_topk, T = 3 (B1 bf16 2 x 4*K a round, the
+   most survivors in a block, a profiled warm round, the peak memory),
+   kernel_quant, T = 2 (B4 bf16), the wire bytes (B2), the fused exchange
+   at full width or its refusal past kpad, phi3-smoke fused against dense
+   bit for bit, and lm-test card against host round by round;
+13. the MoE, Mamba-2 and multimodal paths: C2DFB on mamba2-2.7b at its
+   published width, 2 of 64 layers, its f32 a_log, d_skip and dt_bias
+   beside bf16 leaves, with phase 12's traffic through run(): kernel_topk,
+   T = 3 (B1 bf16 2 x 4*K a round, none in f32: x is mixed uncompressed;
+   every leaf at its dtype, a profiled warm round, the peak memory),
+   kernel_quant, T = 2 (B4 bf16), the wire bytes (B2); one mixtral-8x7b
+   block at full width (loss and gradient, the slots dropped at capacity
+   160 against the host's count, the dispatch against the direct top-2
+   mixture); seamless-m4t-medium at full depth and llama-3.2-vision-11b at
+   one repeat (loss and gradient through the memory, the encoder's
+   gradient, the memory's reach); one full-width Mamba-2 layer over two
+   chunks and jamba-smoke, mixtral-smoke and mamba2-smoke through run(),
+   card against host.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -2416,12 +2437,17 @@ def _lm_run(problem, topo, cfg, x0, y0, T_, generator=None, transport=None):
     return state, mets, _build.launch_counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
-def _lm_checks(tag: str, state, mets, T_: int, y_shapes) -> None:
+def _lm_checks(tag: str, state, mets, T_: int, y_shapes, x_dtypes=None) -> None:
+    """Finite state and metrics, y's shapes, and every leaf at its dtype:
+    bf16, or where ``x_dtypes`` is given, x and s_x leaf by leaf at those
+    (the reference's: a Mamba block's f32 leaves in a bf16 model)."""
     from repro_torch.core.types import tree_leaves
 
-    for tree in (state.x, state.s_x, state.inner_y.d, state.inner_z.d):
-        for leaf in tree_leaves(tree):
-            check(leaf.dtype == torch.bfloat16, f"{tag}: a leaf left bf16 ({leaf.dtype})")
+    for is_x, tree in ((True, state.x), (True, state.s_x), (False, state.inner_y.d), (False, state.inner_z.d)):
+        leaves = tree_leaves(tree)
+        want = x_dtypes if x_dtypes is not None and is_x else [torch.bfloat16] * len(leaves)
+        for leaf, dt in zip(leaves, want):
+            check(leaf.dtype == dt, f"{tag}: a leaf left {dt} ({leaf.dtype})")
             check(bool(torch.isfinite(leaf).all()), f"{tag}: the state holds non-finite values")
     check([tuple(v.shape) for v in tree_leaves(state.inner_y.d)] == y_shapes, f"{tag}: y has the wrong shapes")
     for k, v in mets.items():
@@ -2456,12 +2482,8 @@ def phase_lm(dev) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.core.c2dfb import c2dfb_round, round_wire_bytes_measured
-    from repro_torch.core.inner_loop import inner_transmit
     from repro_torch.core.topology import ring
     from repro_torch.core.types import tree_leaves
-    from repro_torch.net.wire import SparseCodec, codec_for
-    from repro_torch.kernels import _build
     from repro_torch.kernels.pack_residuals import padded_k
 
     cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
@@ -2498,26 +2520,7 @@ def phase_lm(dev) -> dict:
     profile_lm_round(problem, topo, tcfg, state)
 
     # (c) the wire bytes of (a)'s final state, through the pack kernel
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    wire = round_wire_bytes_measured(state, tcfg, topo)
-    wcounts = _build.launch_counts()
-    print(f"[lm wire] round_wire_bytes_measured {wire} in {time.perf_counter() - t0:.3f} s, launches {wcounts}")
-    check(wcounts["pack_sparse_blocks"] == 2 * 2 * LM_M * len(y_shapes), f"B2 launched {wcounts}")
-    codec = codec_for(tcfg.make_compressor())
-    t0 = time.perf_counter()
-    inner = 0
-    for inner_state in (state.inner_y, state.inner_z):
-        for a, b in ((inner_state.d, inner_state.d_hat), (inner_state.s, inner_state.s_hat)):
-            q = inner_transmit(tcfg.make_compressor(), None, a, b)
-            for i in range(LM_M):
-                for leaf in tree_leaves(q):
-                    payload = codec.encode(leaf[i])
-                    check(payload == SparseCodec().encode(leaf[i]), f"node {i}: a block-sparse payload differs")
-                    inner += len(payload)
-    check(inner * tcfg.K == wire["inner_bytes"], "the payloads disagree with round_wire_bytes_measured")
-    print(f"[lm wire] {2 * 2 * LM_M * len(y_shapes)} leaf payloads equal the sparse codec's in "
-          f"{time.perf_counter() - t0:.3f} s")
+    lm_wire("[lm wire]", state, tcfg, topo, LM_M, len(y_shapes))
     times = lm_kernel_times(state.inner_y.d["lm_head"] - state.inner_y.d_hat["lm_head"], tcfg)
     del state, mets
 
@@ -2542,6 +2545,39 @@ def phase_lm(dev) -> dict:
     out.update({k: v for k, v in smoke.items() if k not in out})
     lm_card_against_host(dev)
     return out
+
+
+def lm_wire(tag: str, state, cfg, topo, m: int, n_y: int) -> int:
+    """round_wire_bytes_measured on ``state``: the pack kernel (B2) launches
+    2 loops x 2 messages x m nodes x n_y leaves times, and every leaf payload
+    of the block-sparse codec equals the sparse codec's byte string.
+    Returns B2's launches."""
+    from repro_torch.core.c2dfb import round_wire_bytes_measured
+    from repro_torch.core.inner_loop import inner_transmit
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels import _build
+    from repro_torch.net.wire import SparseCodec, codec_for
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    wire = round_wire_bytes_measured(state, cfg, topo)
+    wcounts = _build.launch_counts()
+    print(f"{tag} round_wire_bytes_measured {wire} in {time.perf_counter() - t0:.3f} s, launches {wcounts}")
+    check(wcounts["pack_sparse_blocks"] == 2 * 2 * m * n_y, f"B2 launched {wcounts}")
+    codec = codec_for(cfg.make_compressor())
+    t0 = time.perf_counter()
+    inner = 0
+    for inner_state in (state.inner_y, state.inner_z):
+        for a, b in ((inner_state.d, inner_state.d_hat), (inner_state.s, inner_state.s_hat)):
+            q = inner_transmit(cfg.make_compressor(), None, a, b)
+            for i in range(m):
+                for leaf in tree_leaves(q):
+                    payload = codec.encode(leaf[i])
+                    check(payload == SparseCodec().encode(leaf[i]), f"node {i}: a block-sparse payload differs")
+                    inner += len(payload)
+    check(inner * cfg.K == wire["inner_bytes"], "the payloads disagree with round_wire_bytes_measured")
+    print(f"{tag} {2 * 2 * m * n_y} leaf payloads equal the sparse codec's in {time.perf_counter() - t0:.3f} s")
+    return wcounts["pack_sparse_blocks"]
 
 
 def lm_kernel_times(resid: torch.Tensor, cfg) -> dict:
@@ -2734,12 +2770,14 @@ def lm_fused_smoke(dev) -> dict:
     return dict(pack_sparse_blocks=cf["pack_sparse_blocks"], unpack_sparse_blocks=cf["unpack_sparse_blocks"])
 
 
-def lm_card_against_host(dev) -> None:
-    """lm-test (bf16), m = 8, B = 2, S = 32, K = 2, kernel_topk at 0.1 of
-    blocks of 512, T = 2: the host steps its rounds and records its top-k
-    selections; the card runs each round on the host's round-t state keeping
-    them (a parted row must be a near-tie), and every field lies within the
-    tests' bf16 bound of the host's."""
+def lm_card_against_host(dev, cfg=None, steps: float = BF16_STEPS) -> None:
+    """lm-test (bf16; or ``cfg``), m = 8, B = 2, S = 32, K = 2,
+    kernel_topk at 0.1 of blocks of 512, T = 2: the host steps its rounds
+    and records its top-k selections; the card runs each round on the
+    host's round-t state keeping them (a parted row must be a near-tie),
+    and every field lies within the tests' bf16 bound of the host's:
+    ``steps`` of a leaf's scale (of a tracker's, or of the gradients it
+    sums if larger), times 1 + 2 lam for s_x and u."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.core import selection
     from repro_torch.core.c2dfb import c2dfb_round, init_state
@@ -2747,7 +2785,7 @@ def lm_card_against_host(dev) -> None:
     from repro_torch.core.types import tree_leaves
     from repro_torch.kernels import _build
 
-    cfg = ModelConfig(**LM_TEST)
+    cfg = cfg or ModelConfig(**LM_TEST)
     ccfg = lm_c2dfb("kernel_topk", K=2, ratio=0.1, block=512)
     probs = {d: lm_problem(cfg, 8, 2, 32, d) for d in ("cpu", dev)}
     hp, hx, hy = probs["cpu"]
@@ -2757,6 +2795,11 @@ def lm_card_against_host(dev) -> None:
     seen = selection.Partings()
     worst = 0.0
     _build.reset_launch_counts()
+
+    def fields(st):
+        return dict(x=st.x, s_x=st.s_x, u=st.u_prev, y=st.inner_y.d, y_s=st.inner_y.s, z=st.inner_z.d,
+                    z_s=st.inner_z.s)
+
     for t in range(2):
         log = []
         with selection.recorded(log):
@@ -2764,23 +2807,320 @@ def lm_card_against_host(dev) -> None:
         on_card = _to(state, dev)
         with selection.imposed([(r.to(dev), k.to(dev)) for r, k in log], seen):
             got, _ = c2dfb_round(on_card, None, probs[dev][0], ring(8), ccfg)
-        fields = dict(x=(got.x, want.x), s_x=(got.s_x, want.s_x), u=(got.u_prev, want.u_prev),
-                      y=(got.inner_y.d, want.inner_y.d), y_s=(got.inner_y.s, want.inner_y.s),
-                      z=(got.inner_z.d, want.inner_z.d), z_s=(got.inner_z.s, want.inner_z.s))
         grads = dict(y_s=want.inner_y.g_prev, z_s=want.inner_z.g_prev)
-        for name, (g, w) in fields.items():
+        for name, g in fields(got).items():
+            w = fields(want)[name]
             factor = 1 + 2 * ccfg.lam if name in ("s_x", "u") else 1
             for a, b, s in zip(tree_leaves(g), tree_leaves(w), tree_leaves(grads.get(name, w))):
                 scale = max(float(b.float().abs().max()), float(s.float().abs().max()))
                 err = float((a.cpu().float() - b.float()).abs().max())
-                bound = factor * BF16_STEPS * scale
+                bound = factor * steps * scale
                 worst = max(worst, err / bound if bound else 0.0)
-                check(err <= bound, f"lm-test round {t} {name}: card {err!r} off the host, bound {bound!r}")
+                check(err <= bound, f"{cfg.name} round {t} {name}: card {err!r} off the host, bound {bound!r}")
         state = want
     counts = _build.launch_counts()
-    check(counts["block_topk_bf16"] == 2 * 2 * 4 * 2, f"lm-test on the card launched {counts}")
-    print(f"[lm host] lm-test card against host, 2 rounds on the host's states: within the bf16 bound (largest "
-          f"{worst:.3f} of it), {seen.rows} parted rows (near-ties), launches {counts}")
+    check(counts["block_topk_bf16"] == 2 * 2 * 4 * 2, f"{cfg.name} on the card launched {counts}")
+    print(f"[lm host] {cfg.name} ({cfg.num_layers} layers) card against host, m 8, 2 rounds on the host's states: "
+          f"within the bf16 bound of {steps / 2.0 ** -8:g} steps (largest {worst:.3f} of it), {seen.rows} parted "
+          f"rows (near-ties), launches {counts}")
+
+
+# mamba2-2.7b at its published width (arXiv:2405.21060), cut to SSM_LAYERS of
+# its 64 layers, the one cut; the traffic of phase 12 (the reference
+# launcher's c2dfb defaults)
+SSM_ARCH = "mamba2-2.7b"
+SSM_LAYERS = 2
+# the tests' bf16 bound for a Mamba layer (tests/test_torch_lm_bilevel.py):
+# 16 bf16 steps of a leaf's scale
+A10B_STEPS = 4 * BF16_STEPS
+
+
+def phase_archs(dev) -> dict:
+    """Phase 13, the MoE, Mamba-2 and multimodal paths (A10b):
+
+    (a) C2DFB on mamba2-2.7b (d_model 2,560, 80 SSM heads of 64, state 128,
+        1 group, vocab 50,280, untied head) at SSM_LAYERS layers through
+        run(), bf16 with the Mamba blocks' f32 a_log, d_skip and dt_bias,
+        m = 4 on a ring, B = 4, S = 128, K = 5, lam = 10: kernel_topk, T = 3
+        after a cold round (B1 bf16 2 leaves x 4 K a round; B1 f32 none:
+        the f32 leaves lie in x, which C2DFB mixes uncompressed), every
+        leaf at the reference's dtype, measured_bytes, the most survivors
+        in a block by leaf, a profiled warm round, the peak memory;
+        kernel_quant on a torch.Generator, T = 2 (B4 bf16); the wire bytes
+        of (a)'s final state (B2, the sparse codec's byte strings);
+    (b) one mixtral-8x7b block at full width, m = 1, B = 4, S = 128:
+        lm_loss and its gradient through the recompute (time, peak memory,
+        finite); the slots dropped at capacity 160 against the host's count
+        on the same router logits; on 64 of its tokens at capacity factor 4,
+        the dispatch against the direct top-2 mixture in f32;
+    (c) seamless-m4t-medium at full depth (the encoder over S / 8 stub
+        frames, lm_loss(memory=) and its gradient; the encoder's gradient
+        nonzero; a change in the last frame moves the first decoder
+        position); llama-3.2-vision-11b at one repeat (5 of 40 layers, 1,600
+        patches: loss and gradient; the first block's output independent of
+        the memory, bit for bit); one mamba2-2.7b layer at full width, B = 1,
+        S = 512 (two chunks of 256), card against host;
+    (d) jamba-smoke, mixtral-smoke and mamba2-smoke at their smoke depth
+        through run(), m = 8, card against host on the host's states with
+        its selections, within the tests' bf16 bound for these layers
+        (A10B_STEPS of a leaf's scale).
+
+    Returns (a)'s launch counts and timings."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import ring
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels.pack_residuals import padded_k
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_LAYERS)
+    check(cfg.d_model == 2560 and cfg.ssm_heads == 80 and cfg.ssm_state == 128 and cfg.vocab_size == 50280
+          and not cfg.tie_embeddings, f"{cfg} is not mamba2-2.7b")
+    topo = ring(LM_M)
+    t0 = time.perf_counter()
+    problem, x0, y0 = lm_problem(cfg, LM_M, LM_B, LM_S, dev)
+    torch.cuda.synchronize()
+    n_x = sum(v[0].numel() for v in tree_leaves(x0))
+    n_y = sum(v[0].numel() for v in tree_leaves(y0))
+    y_shapes = [tuple(v.shape) for v in tree_leaves(y0)]
+    x_dtypes = [v.dtype for v in tree_leaves(x0)]
+    f32_leaves = sum(1 for d in x_dtypes if d == torch.float32)
+    print(f"[ssm] {cfg.name} at {cfg.num_layers} of 64 layers: d_model {cfg.d_model}, {cfg.ssm_heads} SSM heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, groups {cfg.ssm_groups}, chunk {cfg.ssm_chunk}, vocab "
+          f"{cfg.vocab_size}; x {n_x} ({f32_leaves} f32 leaves) and y {n_y} parameters a node, m {LM_M}, B {LM_B}, "
+          f"S {LM_S}, K {LM_K}; built in {time.perf_counter() - t0:.3f} s; y leaves {y_shapes}")
+    # a_log, d_skip and dt_bias of the pattern's one position, stacked over the layers
+    check(f32_leaves == 3 * len(cfg.pattern), f"x holds {f32_leaves} f32 leaves, want a_log, d_skip and dt_bias")
+
+    # (a) the synchronous run with kernel_topk
+    tcfg = lm_c2dfb("kernel_topk")
+    _, cmets, ccounts, cold, _ = _lm_run(problem, topo, tcfg, x0, y0, 1)
+    print(f"[ssm topk] cold round (traces the oracles): {cold!r} s, launches {ccounts}, measured_bytes "
+          f"{int(cmets['measured_bytes'][0])}")
+    with survivors_by_leaf(tcfg.comp_block) as most:
+        state, mets, counts, wall, peak = _lm_run(problem, topo, tcfg, x0, y0, LM_T)
+    most = {k: int(v) for k, v in most.items()}
+    _lm_checks("[ssm topk]", state, mets, LM_T, y_shapes, x_dtypes=x_dtypes)
+    want = len(y_shapes) * 4 * LM_K * LM_T
+    print(f"[ssm topk] {LM_T} warm rounds in {wall!r} s ({wall / LM_T!r} s a round), launches {counts}, peak "
+          f"device memory {peak} bytes; measured_bytes {[int(b) for b in mets['measured_bytes']]}, hypergrad_norm "
+          f"{mets['hypergrad_norm'].tolist()}")
+    check(counts["block_topk_bf16"] == want and counts["block_topk"] == 0, f"B1 launched {counts}, want {want} bf16")
+    check(int(cmets["measured_bytes"][0]) == int(mets["measured_bytes"][0]), "the cold round metered other bytes")
+    kpad = padded_k(max(1, int(round(tcfg.comp_ratio * tcfg.comp_block))))
+    print(f"[ssm topk] the most survivors in a block, by leaf: {most} (kpad {kpad})")
+    profile_lm_round(problem, topo, tcfg, state)
+    pack = lm_wire("[ssm wire]", state, tcfg, topo, LM_M, len(y_shapes))
+    del state, mets
+
+    # kernel_quant on a torch.Generator
+    qcfg = lm_c2dfb("kernel_quant")
+    qstate, qmets, qcounts, qwall, qpeak = _lm_run(problem, topo, qcfg, x0, y0, 2,
+                                                   generator=torch.Generator(device=dev).manual_seed(0))
+    _lm_checks("[ssm quant]", qstate, qmets, 2, y_shapes, x_dtypes=x_dtypes)
+    print(f"[ssm quant] 2 rounds in {qwall!r} s, launches {qcounts}, peak {qpeak} bytes, measured_bytes "
+          f"{[int(b) for b in qmets['measured_bytes']]}")
+    check(qcounts["quantize_bf16"] == len(y_shapes) * 4 * LM_K * 2 and qcounts["quantize"] == 0,
+          f"B4 launched {qcounts}")
+    del qstate, qmets, problem, x0, y0
+    out = dict(block_topk_bf16=counts["block_topk_bf16"], block_topk_f32=counts["block_topk"],
+               quantize_bf16=qcounts["quantize_bf16"], pack_sparse_blocks=pack, peak_bytes=peak,
+               warm_round_s=wall / LM_T)
+    print(f"[ssm] (a) in {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    moe_block_full(dev)
+    print(f"[archs] (b) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    audio_full(dev)
+    vlm_repeat(dev)
+    mamba_layer_card_against_host(dev, cfg)
+    print(f"[archs] (c) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name in ("jamba-1.5-large-398b", "mixtral-8x7b", "mamba2-2.7b"):
+        lm_card_against_host(dev, get_config(name, smoke=True), steps=A10B_STEPS)
+    print(f"[archs] (d) in {time.perf_counter() - t0:.1f} s; phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _grad_run(tag: str, cfg, params, loss_fn):
+    """``loss_fn(params)``'s (m,) losses and their gradient (summed over the
+    nodes) by torch.func.grad, timed and with the peak memory; every value
+    finite."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = loss_fn(params)
+    grads = torch.func.grad(lambda p: loss_fn(p).sum())(params)
+    torch.cuda.synchronize()
+    wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    from repro_torch.core.types import tree_leaves
+
+    n = sum(v.numel() for v in tree_leaves(params))
+    check(bool(torch.isfinite(loss).all()) and all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads)),
+          f"{tag}: a non-finite loss or gradient")
+    print(f"[{tag}] {cfg.name}: {n} parameters, loss {loss.tolist()}, loss and gradient in {wall!r} s, peak "
+          f"{peak} bytes")
+    return loss, grads
+
+
+def _model(cfg, dev, seed: int = 0):
+    from repro_torch.core.types import tree_map
+    from repro_torch.models.transformer import init_lm_params
+
+    return tree_map(lambda v: v.unsqueeze(0), init_lm_params(cfg, torch.Generator(device=dev).manual_seed(seed)))
+
+
+def _tokens(cfg, dev, seed: int = 0):
+    """Tokens and labels (1, LM_B, LM_S) from a seeded generator on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(0, cfg.vocab_size, (1, LM_B, LM_S), generator=g, device=dev),
+            torch.randint(0, cfg.vocab_size, (1, LM_B, LM_S), generator=g, device=dev))
+
+
+def moe_block_full(dev) -> None:
+    """(b): one mixtral-8x7b block (8 experts of d_ff 14,336, top-2, window
+    4,096) at m = 1, B = 4, S = 128."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_map
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import _apply_block, embed_tokens, lm_loss
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=1)
+    check(cfg.num_experts == 8 and cfg.d_ff == 14336 and cfg.window == 4096, f"{cfg} is not mixtral-8x7b")
+    params = _model(cfg, dev)
+    tokens, labels = _tokens(cfg, dev)
+    _grad_run("moe", cfg, params, lambda p: lm_loss(p, cfg, tokens, labels))
+    # the MoE's input: the block's attention half, then its norm
+    blk = tree_map(lambda v: v[:, 0], params["blocks"][0])
+    x = embed_tokens(params["embed"], tokens).to(cfg.dtype)
+    pos = torch.arange(LM_S, dtype=torch.int32, device=dev).expand(LM_B, LM_S)
+    no_moe = dict(blk)
+    del no_moe["moe"], no_moe["norm2"]
+    half, _ = _apply_block(no_moe, dataclasses.replace(cfg, d_ff=0), 0, x, pos)
+    h = rms_norm(half, blk["norm2"], cfg.norm_eps)
+    T_, E, k = LM_B * LM_S, cfg.num_experts, cfg.num_experts_per_tok
+    C = max(8, int(T_ * k / E * 1.25))
+    probs, idx, _ = M._route(blk["moe"], cfg, h.reshape(1, T_, -1))
+    onehot = M._one_hot(idx.reshape(1, -1), E).to(torch.int64)
+    pos_in = torch.sum((torch.cumsum(onehot, dim=1) - onehot) * onehot, dim=-1)
+    dropped = int((pos_in >= C).sum())
+    # the host, from the same router probabilities: a stable descending sort,
+    # then each slot's token-major position in its expert
+    hp = probs[0].cpu().numpy()
+    order = np.argsort(-hp, axis=-1, kind="stable")[:, :k].reshape(-1)
+    seen_e = np.zeros(E, np.int64)
+    host = 0
+    for e in order:
+        host += int(seen_e[e] >= C)
+        seen_e[e] += 1
+    check(np.array_equal(order, idx.reshape(-1).cpu().numpy()), "the card's top-2 experts differ from the host's")
+    check(dropped == host, f"the card drops {dropped} slots at capacity {C}, the host {host}")
+    print(f"[moe] capacity {C}: {dropped} of {T_ * k} slots dropped (host {host}); experts' loads "
+          f"{seen_e.tolist()}")
+    # 64 tokens at capacity factor 4 in f32: the dispatch against the direct top-2 mixture
+    p32 = tree_map(lambda v: v.to(torch.float32), blk["moe"])
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    xt = h.reshape(1, 1, -1, h.shape[-1])[:, :, :64].to(torch.float32)  # (m, B, S, D) = (1, 1, 64, 4,096)
+    got, _ = M.moe_apply(p32, c32, xt, capacity_factor=4.0)
+    _, idx64, gates = M._route(p32, c32, xt.reshape(1, 64, -1))
+    want = torch.zeros_like(xt.reshape(64, -1))
+    for t in range(64):
+        for j in range(k):
+            e = int(idx64[0, t, j])
+            a = xt[0, 0, t] @ p32["wg"][0, e]
+            hid = a * torch.sigmoid(a) * (xt[0, 0, t] @ p32["wi"][0, e])
+            want[t] += gates[0, t, j] * (hid @ p32["wo"][0, e])
+    err = float((got.reshape(64, -1) - want).abs().max())
+    check(torch.allclose(got.reshape(64, -1), want, atol=2e-4, rtol=1e-3),
+          f"the dispatch at capacity factor 4 is {err} off the direct top-2 mixture")
+    print(f"[moe] 64 tokens at capacity factor 4 (f32): the dispatch within {err:.3g} of the direct top-2 mixture")
+    del params, p32
+
+
+def audio_full(dev) -> None:
+    """(c): seamless-m4t-medium at full depth, m = 1, B = 4, S = 128, 16
+    stub frames."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.models.transformer import encoder_forward, forward_hidden, lm_loss
+
+    cfg = get_config("seamless-m4t-medium")
+    check(cfg.num_layers == 12 and cfg.enc_layers == 12 and cfg.vocab_size == 256206, f"{cfg} is not seamless")
+    params = _model(cfg, dev)
+    tokens, labels = _tokens(cfg, dev)
+    frames = torch.randn((1, LM_B, LM_S // cfg.enc_seq_ratio, cfg.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(3), device=dev).to(cfg.dtype)
+    _, grads = _grad_run("audio", cfg, params,
+                         lambda p: lm_loss(p, cfg, tokens, labels, memory=encoder_forward(p, cfg, frames)))
+    enc = [float(g.float().abs().max()) for g in tree_leaves(grads["encoder"])]
+    check(min(enc) > 0, f"an encoder leaf's gradient is zero: {enc}")
+    moved = frames.clone()
+    moved[0, :, -1] += 10.0
+    h1, _ = forward_hidden(params, cfg, tokens, memory=encoder_forward(params, cfg, frames))
+    h2, _ = forward_hidden(params, cfg, tokens, memory=encoder_forward(params, cfg, moved))
+    d = float((h1[:, :, 0].float() - h2[:, :, 0].float()).abs().max())
+    check(d > 0, "a change in the last frame left the first decoder position unchanged")
+    print(f"[audio] every encoder leaf's gradient nonzero (smallest max {min(enc):.3g}); the last frame moves the "
+          f"first decoder position by {d:.3g}")
+    del params, grads
+
+
+def vlm_repeat(dev) -> None:
+    """(c): llama-3.2-vision-11b at one repeat of its (full x 4, cross)
+    pattern, m = 1, B = 4, S = 128, 1,600 patches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_map
+    from repro_torch.models.transformer import _apply_block, embed_tokens, lm_loss
+
+    cfg = get_config("llama-3.2-vision-11b")
+    cfg = dataclasses.replace(cfg, num_layers=len(cfg.pattern))
+    check(cfg.num_patches == 1600 and cfg.pattern[-1] == "cross", f"{cfg} is not llama-3.2-vision")
+    params = _model(cfg, dev)
+    tokens, labels = _tokens(cfg, dev)
+    patches = torch.randn((1, LM_B, cfg.num_patches, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(4),
+                          device=dev).to(cfg.dtype)
+    _grad_run("vlm", cfg, params, lambda p: lm_loss(p, cfg, tokens, labels, memory=patches))
+    x = embed_tokens(params["embed"], tokens).to(cfg.dtype)
+    pos = torch.arange(LM_S, dtype=torch.int32, device=dev).expand(LM_B, LM_S)
+    blk0 = tree_map(lambda v: v[:, 0], params["blocks"][0])
+    o1, _ = _apply_block(blk0, cfg, 0, x, pos, patches)
+    o2, _ = _apply_block(blk0, cfg, 0, x, pos, patches + 5.0)
+    check(_same_bits(o1, o2), "the first (text) block's output depends on the image memory")
+    print("[vlm] the first block's output is independent of the memory, bit for bit")
+    del params
+
+
+def mamba_layer_card_against_host(dev, cfg) -> None:
+    """(c): one Mamba-2 layer of ``cfg`` at full width, B = 1, S = 512 (two
+    chunks of 256, so the carried state crosses a chunk), its parameters and
+    input drawn on the host; card against host within the tests' bf16 bound
+    (A10B_STEPS of the output's scale)."""
+    from repro_torch.core.types import tree_map
+    from repro_torch.models.ssm import mamba_apply, mamba_init
+
+    check(cfg.ssm_chunk == 256, f"chunk {cfg.ssm_chunk}")
+    g = torch.Generator().manual_seed(5)
+    p = tree_map(lambda v: v.unsqueeze(0), mamba_init(g, cfg))
+    x = torch.randn((1, 1, 512, cfg.d_model), generator=g).to(cfg.dtype)
+    t0 = time.perf_counter()
+    want, wstate = mamba_apply(p, cfg, x)
+    host_s = time.perf_counter() - t0
+    got, gstate = mamba_apply(tree_map(lambda v: v.to(dev), p), cfg, x.to(dev))
+    torch.cuda.synchronize()
+    for name, a, b in (("out", got, want), ("state", gstate, wstate)):
+        err = float((a.cpu().float() - b.float()).abs().max())
+        bound = A10B_STEPS * float(b.float().abs().max())
+        check(err <= bound, f"a full-width Mamba layer's {name}: card {err!r} off the host, bound {bound!r}")
+        print(f"[ssm layer] {name} {tuple(a.shape)} {a.dtype}: card within {err:.4g} of the host (bound {bound:.4g}); "
+              f"host {host_s:.2f} s")
 
 
 def _to(tree, dev):
@@ -2790,10 +3130,10 @@ def _to(tree, dev):
 
 
 def run_only(dev, only: list) -> int:
-    """``--only c4,lm``: the named checks alone, in that order, after the
-    build (for working on one of them): "c4" phase 4's kernel_topk run and
-    phase 11's fused round on its states, "lm" phase 12.  No result
-    lines."""
+    """``--only c4,lm,archs``: the named checks alone, in that order, after
+    the build (for working on one of them): "c4" phase 4's kernel_topk run
+    and phase 11's fused round on its states, "lm" phase 12, "archs" phase
+    13.  No result lines."""
     for name in only:  # in the order given
         if name == "c4":
             bundle = build_task(dev)
@@ -2802,8 +3142,10 @@ def run_only(dev, only: list) -> int:
             del bundle
         elif name == "lm":
             print(f"[only] phase 12: {phase_lm(dev)}")
+        elif name == "archs":
+            print(f"[only] phase 13: {phase_archs(dev)}")
         else:
-            fail(f"--only takes c4 and lm, not {name!r}")
+            fail(f"--only takes c4, lm and archs, not {name!r}")
     print(f"[only] {only} passed")
     return 0
 
@@ -2903,6 +3245,13 @@ def main() -> int:
     for name in ("pack_sparse_blocks", "unpack_sparse_blocks"):
         if name in lm:
             kernels[name if name == "pack_sparse_blocks" else "unpack_sparse_blocks_into"]["lm_launches"] = lm[name]
+    # 13. the MoE, Mamba-2 and multimodal paths: C2DFB on mamba2-2.7b at its published width, bf16 leaves beside f32
+    # ones; launches under new keys (the counts above stay phase 12's)
+    archs = phase_archs(dev)
+    kernels["block_topk"]["bf16"]["mamba2_launches"] = archs["block_topk_bf16"]
+    kernels["block_topk"]["mamba2_launches"] = archs["block_topk_f32"]
+    kernels["quantize"]["bf16"]["mamba2_launches"] = archs["quantize_bf16"]
+    kernels["pack_sparse_blocks"]["mamba2_launches"] = archs["pack_sparse_blocks"]
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

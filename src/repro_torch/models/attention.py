@@ -102,7 +102,7 @@ def _chunk_attn(q_c, qpos_c, k, v, kpos, cfg, kind):
     if kind in ("full", "swa"):
         mask = qpos_c[:, :, None] >= kpos[:, None, :]  # causal (B, qc, Sk)
         if kind == "swa" and cfg.window:
-            mask &= (qpos_c[:, :, None] - kpos[:, None, :]) < cfg.window
+            mask = mask & ((qpos_c[:, :, None] - kpos[:, None, :]) < cfg.window)  # not in place: traced
         scores = torch.where(mask[None, :, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return _gqa_out(probs, v)
@@ -180,7 +180,7 @@ def attn_decode(p, cfg, x_t, cache, pos: int, kind="full", memory=None):
     scores = _gqa_scores(q, k_cache, cfg)  # (m, B, KV, G, 1, size)
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if kind == "swa" and cfg.window:
-        valid &= slot_pos > (pos - cfg.window)
+        valid = valid & (slot_pos > (pos - cfg.window))
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = _gqa_out(probs, v_cache)

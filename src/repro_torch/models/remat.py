@@ -1,7 +1,11 @@
 """Recompute a region in the backward pass instead of saving its
 activations (the port of the reference's ``jax.checkpoint`` regions: the
-attention query chunk, the cross-entropy chunk and the transformer's
-block body).
+attention query chunk, the cross-entropy chunk, the transformer's repeat
+of blocks and the encoder's block).  A region's float tensor arguments
+are its differentiated inputs and its outputs may be several: the
+transformer's repeat takes the running auxiliary loss and the modality
+memory in and gives (x, aux) out, so the gradient reaches the encoder
+through the memory.
 
 ``torch.utils.checkpoint`` cannot serve here: the port's oracles trace
 ``torch.func.grad`` under ``make_fx`` (`repro_torch.core.oracle_graph`),

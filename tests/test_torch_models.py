@@ -10,15 +10,17 @@
 * configs: the ten archs' ``CONFIG`` and ``SMOKE`` field for field, their
   ``param_count`` and ``active_param_count``, the registry and the input
   shapes; ``init_lm_params`` gives the reference's tree structure, shapes
-  and dtypes for every dense ``SMOKE``, and a MoE, SSM, hybrid, audio or
-  vision config raises the NotImplementedError that names A10b;
-* the transformer: ``forward_hidden`` and ``lm_loss`` of every dense
-  ``SMOKE`` in f32 (sliding windows, soft-caps, QKV biases, squared ReLU,
-  tied and scaled embeddings) on the reference's parameters, and the
-  gradient of ``lm_loss``;
+  and dtypes (the Mamba blocks' f32 ``a_log``, ``d_skip`` and ``dt_bias``
+  and the MoE's f32 router in a bf16 model) for all ten ``SMOKE``s;
+* the transformer: ``forward_hidden`` and ``lm_loss`` of all ten
+  ``SMOKE``s in f32 (sliding windows, soft-caps, QKV biases, squared ReLU,
+  tied and scaled embeddings, MoE, Mamba-2, the hybrid, the VLM's cross
+  blocks over patches and the audio decoder over its encoder's output) on
+  the reference's parameters, and the gradient of ``lm_loss`` (through
+  the memory into the encoder);
 * ``TokenStream`` / ``node_streams``: the reference's batches.
 
-About 15 s on one worker."""
+About 65 s on one worker."""
 
 import dataclasses
 
@@ -44,7 +46,6 @@ from repro_torch.models import transformer as PT
 TOL = dict(rtol=1e-4, atol=1e-6)
 KEY = jax.random.PRNGKey(0)
 DENSE = [n for n in jconfigs.ARCH_NAMES if jconfigs.get_config(n).arch_type == "dense"]
-OTHER = [n for n in jconfigs.ARCH_NAMES if n not in DENSE]
 
 
 def _node(tree):
@@ -158,30 +159,58 @@ def test_registry_and_input_shapes():
         pconfigs.get_config("gpt-5")
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", jconfigs.ARCH_NAMES)
 def test_init_lm_params_has_the_reference_tree(name):
     j, p = jconfigs.get_config(name, smoke=True), pconfigs.get_config(name, smoke=True)
     want, _ = JT.init_lm_params(j, KEY)
     got = PT.init_lm_params(p, torch.Generator().manual_seed(0))
     assert jax.tree.structure(want) == jax.tree.structure(tree_map(lambda v: 0, got))
+    dtypes = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
     for a, w in zip(tree_leaves(got), jax.tree.leaves(want)):
-        assert tuple(a.shape) == w.shape and a.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        assert tuple(a.shape) == w.shape and a.dtype == dtypes[w.dtype.type]
     assert isinstance(got["blocks"], list) and len(got["blocks"]) == len(p.pattern)
-
-
-@pytest.mark.parametrize("name", OTHER)
-def test_moe_ssm_and_multimodal_configs_name_a10b(name):
-    with pytest.raises(NotImplementedError, match="A10b"):
-        PT.init_lm_params(pconfigs.get_config(name, smoke=True), torch.Generator().manual_seed(0))
+    # the reference's tree carried across unchanged: structure, dtypes (the
+    # f32 leaves of a bf16 model too) and bits
+    carried = from_numpy(want)
+    assert jax.tree.structure(want) == jax.tree.structure(tree_map(lambda v: 0, carried))
+    for a, w in zip(tree_leaves(carried), jax.tree.leaves(want)):
+        w = np.asarray(w)
+        assert a.dtype == dtypes[w.dtype.type]
+        bits = a.view(torch.int16).numpy().view(np.uint16) if a.dtype == torch.bfloat16 else a.numpy()
+        assert np.array_equal(bits, w.view(np.uint16) if a.dtype == torch.bfloat16 else w)
 
 
 # ---------------------------------------------------------------- the transformer
 
 
-@pytest.mark.parametrize("name", DENSE)
+def _memory(jc, params, rng, B):
+    """The modality memory of an audio or vision config (None for the
+    others): the encoder's output over stub frames (S / enc_seq_ratio of
+    them), or stub patch embeddings."""
+    if jc.arch_type == "audio":
+        return rng.standard_normal((B, 32 // jc.enc_seq_ratio, jc.d_model)).astype(np.float32), True
+    if jc.arch_type == "vlm":
+        return rng.standard_normal((B, jc.num_patches, jc.d_model)).astype(np.float32), False
+    return None, False
+
+
+@pytest.mark.parametrize("name", jconfigs.ARCH_NAMES)
 def test_forward_and_loss_of_every_dense_smoke_in_f32(name):
+    """All ten SMOKEs (the name dates from the dense slice).  The audio
+    config's loss takes the encoder's output as memory and its gradient
+    reaches the encoder; the VLM's takes patches.
+
+    Hidden states within rtol 1e-4 / atol 2e-5 and gradients within atol
+    2e-6, as for the dense configs; with Mamba blocks 1e-4 and 1e-5: the
+    chunk scan carries every rounding of dt through exp of a cumulative
+    A dt sum, and the gated norm over d_inner divides by the rms of
+    y silu(z), so the input projection's reassociation differences (2.6e-6
+    on entries of 4.3 in mamba2-smoke's first layer) reach 4.5e-5 in 6 of
+    its 16,384 hidden entries and 4.8e-6 in 3 entries of the embedding's
+    gradient (scale 1.19)."""
     jc = dataclasses.replace(jconfigs.get_config(name, smoke=True), dtype=jnp.float32)
     pc = dataclasses.replace(pconfigs.get_config(name, smoke=True), dtype=torch.float32)
+    h_atol, g_atol = (1e-4, 1e-5) if "mamba" in jc.pattern else (2e-5, 2e-6)
     params, _ = JT.init_lm_params(jc, KEY)
     if jc.qkv_bias:  # nonzero biases, so their path is held too
         params = jax.tree.map(lambda v: v, params)
@@ -191,17 +220,29 @@ def test_forward_and_loss_of_every_dense_smoke_in_f32(name):
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, jc.vocab_size, (2, 32)).astype(np.int32)
     labels = rng.integers(0, jc.vocab_size, (2, 32)).astype(np.int32)
+    extra, encode = _memory(jc, params, rng, 2)
     pp = _node(params)
     ptok, plab = torch.from_numpy(tokens).unsqueeze(0), torch.from_numpy(labels).unsqueeze(0)
-    jh, _ = JT.forward_hidden(params, jc, jnp.asarray(tokens))
-    ph, _ = PT.forward_hidden(pp, pc, ptok)
-    np.testing.assert_allclose(ph[0].numpy(), np.asarray(jh), rtol=1e-4, atol=2e-5)
-    jl = JT.lm_loss(params, jc, jnp.asarray(tokens), jnp.asarray(labels))
-    np.testing.assert_allclose(float(PT.lm_loss(pp, pc, ptok, plab)[0]), float(jl), **TOL)
-    jg = jax.grad(lambda q: JT.lm_loss(q, jc, jnp.asarray(tokens), jnp.asarray(labels)))(params)
-    pg = torch.func.grad(lambda q: PT.lm_loss(q, pc, ptok, plab).sum())(pp)
+    pextra = None if extra is None else torch.from_numpy(extra).unsqueeze(0)
+
+    def jmem(q):
+        return JT.encoder_forward(q, jc, jnp.asarray(extra)) if encode else None if extra is None else jnp.asarray(extra)
+
+    def pmem(q):
+        return PT.encoder_forward(q, pc, pextra) if encode else pextra
+
+    jh, jaux = JT.forward_hidden(params, jc, jnp.asarray(tokens), memory=jmem(params))
+    ph, paux = PT.forward_hidden(pp, pc, ptok, memory=pmem(pp))
+    np.testing.assert_allclose(ph[0].numpy(), np.asarray(jh), rtol=1e-4, atol=h_atol)
+    np.testing.assert_allclose(float(paux[0]), float(jaux), **TOL)
+    jl = JT.lm_loss(params, jc, jnp.asarray(tokens), jnp.asarray(labels), memory=jmem(params))
+    np.testing.assert_allclose(float(PT.lm_loss(pp, pc, ptok, plab, memory=pmem(pp))[0]), float(jl), **TOL)
+    jg = jax.grad(lambda q: JT.lm_loss(q, jc, jnp.asarray(tokens), jnp.asarray(labels), memory=jmem(q)))(params)
+    pg = torch.func.grad(lambda q: PT.lm_loss(q, pc, ptok, plab, memory=pmem(q)).sum())(pp)
     for a, w in zip(tree_leaves(pg), jax.tree.leaves(jg)):
-        np.testing.assert_allclose(to_numpy(a)[0], np.asarray(w), rtol=1e-4, atol=2e-6)
+        np.testing.assert_allclose(to_numpy(a)[0], np.asarray(w), rtol=1e-4, atol=g_atol)
+    if encode:
+        assert any(float(np.abs(np.asarray(w)).max()) > 0 for w in jax.tree.leaves(jg["encoder"]))
 
 
 # ---------------------------------------------------------------- token streams
