@@ -4,6 +4,7 @@ against its plain PyTorch version.
 
     python3 chip_smoke.py          # from the repository root; needs one card
     python3 chip_smoke.py --only archs   # the build, then phase 13 alone
+    python3 chip_smoke.py --only steps   # the build, then phase 14 alone
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -112,7 +113,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    one repeat (loss and gradient through the memory, the encoder's
    gradient, the memory's reach); one full-width Mamba-2 layer over two
    chunks and jamba-smoke, mixtral-smoke and mamba2-smoke through run(),
-   card against host.
+   card against host;
+14. the step factories, optimizers, checkpoints and the train and serve
+   CLIs (A10c), each CLI through its main(argv) in process, every run's wall
+   time and peak memory printed with the card: serve gemma2-27b at its
+   published width and full depth (46 layers, B = 2, a prompt of 4,096 =
+   its window, 16 tokens), the prefill and the first 4 decode steps within
+   4 bf16 steps of a forward over the prompt and the tokens so far;
+   phi3-mini-3.8b served at full depth (B = 4, 64 + 32 tokens), every
+   decode step so; phi3-mini trained 3 AdamW steps at full width and depth
+   (B = 4, S = 128: finite losses, every leaf moved, the peak, each step's
+   loss and gradient, clip and update by CUDA events); phi3-smoke trained
+   with --ckpt-dir and the checkpoint loaded back on the card bit for bit,
+   zlib's rate on a 100 MB bf16 leaf; the c2dfb CLI on qwen2-smoke with
+   kernel_topk (B1 bf16 2 x 4 K x 2 = 48 launches, none f32; the wire bytes
+   of the host's run); and f32 phi3-, gemma2-, mamba2- and mixtral-smoke
+   (and phi3-smoke in bf16) card against host: a SGD-M step, the prefill and
+   8 decode steps.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -121,6 +138,7 @@ limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -3123,6 +3141,478 @@ def mamba_layer_card_against_host(dev, cfg) -> None:
               f"host {host_s:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the step factories, optimizers, checkpoints and the two CLIs (A10c)
+# ---------------------------------------------------------------------------
+
+# gemma2-27b served at its published width and full depth (46 layers: 23
+# repeats of (swa, full), window 4,096): the prompt is exactly the window long,
+# below which the reference's prefill keeps only min(window, S) ring slots and
+# the first decode step overwrites position 0 while the window still holds it
+GEMMA_SERVE = ["--arch", "gemma2-27b", "--batch", "2", "--prompt-len", "4096", "--gen", "16"]
+PHI3_SERVE = ["--arch", "phi3-mini-3.8b", "--batch", "4", "--prompt-len", "64", "--gen", "32"]
+PHI3_TRAIN = ["--arch", "phi3-mini-3.8b", "--algo", "adamw", "--steps", "3", "--batch", "4", "--seq", "128"]
+CKPT_TRAIN = ["--arch", "phi3-mini-3.8b", "--smoke", "--algo", "adamw", "--steps", "3"]
+C2DFB_CLI = ["--arch", "qwen2-7b", "--smoke", "--algo", "c2dfb", "--compressor", "kernel_topk", "--steps", "2",
+             "--batch", "2", "--seq", "64", "--nodes", "3", "--inner-k", "3", "--lr", "0.02"]
+# the stated CPU bounds of tests/test_torch_decode.py (atol of logits and
+# caches; Mamba blocks 1e-4) and of tests/test_torch_steps.py (the gradient)
+DECODE_ATOL = {"dense": 2e-5, "mamba": 1e-4}
+GRAD_ATOL = {"dense": 2e-6, "mamba": 1e-5}
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """Set module attributes for the duration (the CLIs' factories, to
+    capture what main() builds); restored after."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def _cli_run(tag: str, main, argv: list, smi: str):
+    """``main(argv)`` in process after freeing the card: its result, wall
+    seconds and peak device memory, printed with the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    print(f"[{tag}] {' '.join(argv)}: {wall:.3f} s wall, peak device memory {peak} bytes ({held} held before); {smi}")
+    return out, wall, peak
+
+
+def _named_leaves(tree, prefix: str = "") -> list:
+    """(path, leaf) pairs in the trees' flattening order (sorted dict keys,
+    lists in order)."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree) for kv in _named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def _capture_params(module, box: dict):
+    """A stand-in for ``module.init_lm_params`` that keeps what it returns."""
+    init = module.init_lm_params
+
+    def capture(cfg, generator, device=None):
+        box["params"], box["cfg"] = init(cfg, generator, device), cfg
+        return box["params"]
+
+    return capture
+
+
+def serve_consistency(tag: str, argv: list, smi: str, checks: int, steps: float = BF16_STEPS, f32: bool = False,
+                      dev: str = "cuda") -> dict:
+    """The serve CLI's main(argv) on the card, its prefill and decode logits
+    recorded (each decode step's end by a CUDA event); then the logits of
+    the prefill and of each of the first ``checks`` decode steps against the
+    last-position logits of a forward over the prompt plus the tokens
+    generated so far: one forward over the prompt and every generated token,
+    padded to a multiple of the attention's query chunk (causal masks: the
+    padding reaches no earlier position), within ``steps`` bf16 steps of the
+    logits' scale.  With ``f32``, the same in f32 on the parameters cast up
+    (the port's prefill and decode steps fed the CLI's tokens), within the
+    golden rtol 1e-4 of the logits' scale: a check of the decode path (cache
+    slots, positions) free of bf16's rounding.  Then one more decode step
+    under the profiler: its wall, the device's busy share and the host
+    operators it dispatched."""
+    from repro_torch.core.types import tree_leaves, tree_map
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import steps as ST
+    from repro_torch.models import transformer as PT
+
+    box, logits, ends = {}, [], []
+    prefill0, serve0 = SV.make_prefill_step, SV.make_serve_step
+
+    def prefill_rec(cfg, max_len=None):
+        step = prefill0(cfg, max_len=max_len)
+
+        def rec(params, batch):
+            box["prompts"] = batch["tokens"]
+            out = step(params, batch)
+            logits.append(out[0])
+            return out
+        return rec
+
+    def serve_rec(cfg):
+        step = serve0(cfg)
+
+        def rec(*a):
+            out = step(*a)
+            logits.append(out[0])
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ends.append(ev)
+            box["last"] = (step, a[:3] + (out[1],) + a[4:])
+            return out
+        return rec
+
+    with patched(SV, init_lm_params=_capture_params(SV, box), make_prefill_step=prefill_rec,
+                 make_serve_step=serve_rec):
+        tokens, wall, peak = _cli_run(tag, SV.main, argv + ["--device", dev], smi)
+    params, cfg, prompts = box.pop("params"), box.pop("cfg"), box.pop("prompts")
+    n = sum(v.numel() for v in tree_leaves(params))
+    S = prompts.shape[1]
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    seq = torch.cat([prompts, tokens], dim=1)
+    chunk = min(1024, seq.shape[1])
+    seq = torch.nn.functional.pad(seq, (0, -seq.shape[1] % chunk))
+
+    def forward_logits(p, c):
+        with torch.no_grad():
+            p1 = PT.one_node(p)
+            hidden, _ = PT.forward_hidden(p1, c, seq.unsqueeze(0))
+            return PT.head_logits(p1, c, hidden[:, :, S - 1:S + checks].transpose(1, 2))[0]  # (checks + 1, B, V)
+
+    def compare(got: list, want, bound_of, what: str) -> float:
+        worst = 0.0
+        for i in range(checks + 1):
+            bound = bound_of(want[i])
+            err = float((got[i].float() - want[i].float()).abs().max())
+            worst = max(worst, err / bound)
+            check(err <= bound, f"[{tag}] {what} {'prefill' if i == 0 else f'decode step {i - 1}'}: {err!r} off a "
+                                f"forward over the prompt and the tokens so far, bound {bound!r}")
+        return worst
+
+    worst = compare(logits, forward_logits(params, cfg), lambda w: steps * float(w.abs().max()), "bf16")
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, {n} parameters; the prefill and the first {checks} decode "
+          f"steps within {steps / 2.0 ** -8:g} bf16 steps of a forward over the prompt and the tokens so far "
+          f"(largest {worst:.3f} of it); tokens {tuple(tokens.shape)}; decode steps after the first "
+          f"{min(step_ms):.2f}-{max(step_ms):.2f} ms (median {float(np.median(step_ms)):.2f}) by CUDA events")
+    out = dict(wall_s=wall, peak_bytes=peak, parameters=n, step_ms=float(np.median(step_ms)))
+    step, args = box.pop("last")
+    events, pwall, ops = device_window(lambda: step(*args), 1)
+    busy, nops = busy_us(events), sum(ops.values())
+    print(f"[{tag}] one more decode step profiled: {pwall * 1e3:.2f} ms wall, device busy {busy / 1e3:.2f} ms "
+          f"({busy / 1e6 / pwall:.3f}), {len(events)} device activities, {nops} host operators "
+          f"({pwall * 1e6 / max(nops, 1):.1f} us of wall each)")
+    out.update(profiled_ms=pwall * 1e3, busy_share=busy / 1e6 / pwall, host_ops=nops)
+    del args
+    if f32:
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        p32 = tree_map(lambda v: v.float(), params)
+        del params
+        got = []
+        lg, caches = ST.make_prefill_step(c32, max_len=seq.shape[1])(p32, {"tokens": prompts})
+        got.append(lg)
+        serve = ST.make_serve_step(c32)
+        for i in range(checks):
+            lg, caches = serve(p32, tokens[:, i], S + i, caches)
+            got.append(lg)
+        worst = compare(got, forward_logits(p32, c32), lambda w: TOL["rtol"] * float(w.abs().max()), "f32")
+        print(f"[{tag}] in f32 (the parameters cast up): the prefill and {checks} decode steps within the golden "
+              f"rtol 1e-4 of the logits' scale of a forward over the prompt and the tokens so far (largest "
+              f"{worst:.3f} of it)")
+        del p32, caches
+    return out
+
+
+def train_full(smi: str, dev: str = "cuda") -> dict:
+    """(b): phi3-mini-3.8b at its published width and full depth, AdamW, 3
+    steps, B = 4, S = 128 through the train CLI: finite losses, every leaf
+    moved, the peak beside the reckoning, and each step's loss and
+    gradient, clip and update by CUDA events."""
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.launch import train as TR
+    from repro_torch.models import steps as ST
+
+    box, marks = {}, []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    make0, clip0, opt0 = TR.make_train_step, ST.clip_by_global_norm, ST.make_optimizer
+    seen = {}
+
+    def fingerprint(v):  # a sum of the leaf's bit patterns: any change of an entry changes it (almost surely)
+        return torch.sum(v.view(torch.int16 if v.dtype == torch.bfloat16 else torch.int32), dtype=torch.int64)
+
+    def make(cfg, name, lr):
+        step, opt = make0(cfg, name, lr=lr)
+
+        def timed(params, opt_state, batch):
+            if not seen:
+                seen["before"] = [fingerprint(v) for v in tree_leaves(params)]
+            mark()
+            return step(params, opt_state, batch)
+        return timed, opt
+
+    def clip(g, c):
+        mark()
+        out = clip0(g, c)
+        mark()
+        return out
+
+    def optimizer(name, moment_dtype):
+        o = opt0(name, moment_dtype=moment_dtype)
+
+        def update(*a, **k):
+            out = o.update(*a, **k)
+            mark()
+            return out
+        return dataclasses.replace(o, update=update)
+
+    with patched(TR, make_train_step=make, init_lm_params=_capture_params(TR, box)), \
+            patched(ST, clip_by_global_norm=clip, make_optimizer=optimizer):
+        history, wall, peak = _cli_run("train full", TR.main, PHI3_TRAIN + ["--device", dev], smi)
+    params, cfg = box.pop("params"), box.pop("cfg")
+    check(cfg.name == "phi3-mini-3.8b" and cfg.num_layers == 32 and cfg.d_model == 3072,
+          f"{cfg} is not phi3-mini at full depth")
+    check(len(history) == 3 and all(np.isfinite(history)), f"the losses are {history}")
+    # every weight moved; a norm leaf (all ones) cannot in bf16 at lr 3e-4, in either package: 1 - lr (1 + wd)
+    # lies within half a bf16 step below 1.0 (2^-10), so the cast rounds it back to 1
+    named = _named_leaves(params)
+    moved = {k: bool(fingerprint(v) != b) for (k, v), b in zip(named, seen["before"])}
+    weights = [k for k, _ in named if "norm" not in k.rsplit("/", 1)[-1]]
+    check(all(moved[k] for k in weights), f"weights that did not move: {[k for k in weights if not moved[k]]}")
+    norms = [k for k, v in named if k not in weights]
+    check(all(bool(torch.all(v == 1)) for k, v in named if k in norms), "a norm leaf moved off 1.0 in bf16 at lr 3e-4")
+    n = sum(v.numel() for v in tree_leaves(params))
+    torch.cuda.synchronize()
+    parts = []
+    for s in range(3):
+        e = marks[4 * s:4 * s + 4]
+        parts.append([e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]), e[2].elapsed_time(e[3])])
+    reckoned = n * (2 + 2 + 4 + 4)  # bf16 parameters and gradients, f32 m and v
+    print(f"[train full] {cfg.name}: {n} parameters; losses {history}; every one of the {len(weights)} weight leaves "
+          f"moved, the {len(norms)} norm leaves ({norms}) stay at 1.0 in bf16; peak {peak} bytes against "
+          f"{reckoned} bytes of parameters, gradients and moments (the reckoning: 55-62 GB with temporaries)")
+    for s, (lg, cl, up) in enumerate(parts):
+        print(f"[train full] step {s}: loss and gradient {lg:.3f} ms, clip {cl:.3f} ms, update {up:.3f} ms "
+              f"(CUDA events)")
+    del params
+    return dict(wall_s=wall, peak_bytes=peak, parameters=n, losses=history, parts_ms=parts)
+
+
+def checkpoint_on_card(smi: str, dev: str = "cuda") -> dict:
+    """(c): phi3-smoke, AdamW, 3 steps with --ckpt-dir (a temporary
+    directory, removed after) through the train CLI; the file loaded back
+    with load_pytree on the card equals the trained parameters bit for bit;
+    then zlib's rate on one 100 MB bf16 leaf."""
+    import tempfile
+
+    from repro_torch.checkpoint import io as CIO
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.launch import train as TR
+
+    box = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        with patched(TR, init_lm_params=_capture_params(TR, box)):
+            _cli_run("ckpt", TR.main, CKPT_TRAIN + ["--ckpt-dir", ckpt_dir, "--device", dev], smi)
+        params = box.pop("params")  # the train step updates in place: these are the trained parameters
+        path = CIO.latest_checkpoint(ckpt_dir)
+        check(path is not None and path.endswith("ckpt_00000003.msgpack.zst"), f"no checkpoint in {ckpt_dir}: {path}")
+        with open(path, "rb") as f:
+            head = f.read(4)
+        codec = "zstd" if head == CIO._ZSTD_MAGIC else "zlib"
+        size = Path(path).stat().st_size
+        restored = CIO.load_pytree(path, params)
+    for a, b in zip(tree_leaves(restored), tree_leaves(params)):
+        check(a.device == b.device and _same_bits(a, b), "a restored leaf differs from the trained one")
+    print(f"[ckpt] {Path(path).name} ({codec}, {size} bytes): {len(tree_leaves(params))} leaves restored on the card "
+          f"bit for bit")
+    leaf = torch.randn((50_000_000,), generator=torch.Generator(device=dev).manual_seed(9), device=dev).to(
+        torch.bfloat16)
+    t0 = time.perf_counter()
+    raw = CIO.packb({b"leaves": [CIO._pack_leaf(leaf)], b"treedef": b"PyTreeDef({'w': *})"})
+    t1 = time.perf_counter()
+    comp = CIO._compress(raw)
+    t2 = time.perf_counter()
+    back = CIO.unpackb(CIO._decompress(comp))
+    t3 = time.perf_counter()
+    check(_same_bits(CIO._unpack_leaf(back[b"leaves"][0]).to(dev), leaf), "the 100 MB leaf did not round-trip")
+    rate = len(raw) / (t2 - t1) / 1e6
+    print(f"[ckpt] one {len(raw)}-byte bf16 leaf: pack (copy to host, msgpack) {t1 - t0:.3f} s, {codec} "
+          f"{t2 - t1:.3f} s ({rate:.1f} MB/s, {len(comp) / len(raw):.3f} of the size), decompress and unpack "
+          f"{t3 - t2:.3f} s")
+    return dict(codec=codec, compress_mb_s=rate)
+
+
+def c2dfb_cli(smi: str, dev: str = "cuda") -> int:
+    """(d): the c2dfb CLI with kernel_topk on the card and on the host: B1
+    bf16 launches 2 head leaves x 4 K x steps, none in f32; the printed wire
+    bytes the host's; every val-loss finite."""
+    import io
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as TR
+
+    lines = []
+    for where in (dev, "cpu"):
+        buf = io.StringIO()
+        _build.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            _cli_run(f"c2dfb cli {where}", TR.main, C2DFB_CLI + ["--device", where], smi)
+        counts = _build.launch_counts()
+        out = buf.getvalue()
+        print(out, end="")
+        lines.append(out)
+        vals = [float(v) for v in re.findall(r"val-loss (\S+)", out)]
+        check(len(vals) == 2 and all(np.isfinite(vals)), f"[c2dfb cli {where}] val-losses {vals}")
+        if len(lines) == 1:
+            launches = counts["block_topk_bf16"]
+            want = 2 * 4 * 3 * 2
+            check(launches == want and counts["block_topk"] == 0, f"the c2dfb CLI launched {counts}, want {want} bf16")
+    wire = [re.search(r"wire bytes/round: .*", out).group(0) for out in lines]
+    check(wire[0] == wire[1], f"the card's {wire[0]!r} is not the host's {wire[1]!r}")
+    print(f"[c2dfb cli] B1 bf16 {launches} launches (2 head leaves x 4 K x 2 rounds), f32 0; {wire[0]} on both")
+    return launches
+
+
+def _near_tie_steps(host_logits: list, host_tokens: list, card_tokens: list, gap: float) -> int:
+    """Steps whose greedy tokens agree before the first near-tie (the host's
+    top two logits within ``gap``); a parting away from a near-tie fails."""
+    for i, (lg, ht, ct) in enumerate(zip(host_logits, host_tokens, card_tokens)):
+        top2 = torch.topk(lg, 2, dim=-1).values
+        if bool(((top2[:, 0] - top2[:, 1]) <= gap).any()):
+            return i
+        check(torch.equal(ht, ct.cpu()), f"greedy tokens part at step {i}, away from a near-tie")
+    return len(host_tokens)
+
+
+def steps_card_against_host(name: str, dtype, dev: str = "cuda") -> None:
+    """(e): a smoke config at ``dtype``, B = 2, S = 64, parameters drawn on
+    the host: one SGD-M train step (the loss and the parameters; f32: the
+    clipped gradient within the tests' gradient bound and the parameters
+    within the golden tolerance plus lr times it), the prefill (logits
+    and every cache leaf) and 8 decode steps fed the host's greedy token
+    (logits; the final caches; greedy tokens up to the first near-tie),
+    within the CPU tests' bounds in f32 and 4 bf16 steps of a leaf's scale
+    in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_leaves, tree_map
+    from repro_torch.models import steps as ST
+    from repro_torch.models import transformer as PT
+
+    cfg = dataclasses.replace(get_config(name, smoke=True), dtype=dtype)
+    family = "mamba" if "mamba" in cfg.pattern else "dense"
+    host = PT.init_lm_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=g, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    f32 = dtype == torch.float32
+    worst = 0.0
+
+    def close(a, b, atol, what):
+        nonlocal worst
+        a, b = a.cpu().float(), b.float()
+        if not f32:
+            atol, rtol = BF16_STEPS * float(b.abs().max()), 0.0
+        else:
+            rtol = TOL["rtol"]
+        err = (a - b).abs()
+        lim = atol + rtol * b.abs()
+        worst = max(worst, float((err / lim.clamp_min(1e-30)).max()))
+        check(bool((err <= lim).all()), f"[steps host] {name} {what}: card {float(err.max())!r} off the host")
+
+    # one SGD-M step
+    lr = 1e-2
+    results = {}
+    for where in ("host", "card"):
+        d = "cpu" if where == "host" else dev
+        params = tree_map(lambda v: v.to(d, copy=True), host)
+        step, opt = ST.make_train_step(cfg, "sgd", lr=lr)
+        results[where] = step(params, opt.init(params), {k: v.to(d) for k, v in batch.items()})
+    (hp, hs, hm), (cp, cs, cm) = results["host"], results["card"]
+    close(cm["loss"], hm["loss"], TOL["atol"], "loss")
+    if f32:  # the first momentum is the clipped gradient; in bf16 a leaf's sum may cancel far below its terms' scale
+        for a, b in zip(tree_leaves(cs.m), tree_leaves(hs.m)):
+            close(a, b, GRAD_ATOL[family], "gradient")
+    for a, b in zip(tree_leaves(cp), tree_leaves(hp)):
+        close(a, b, TOL["atol"] + lr * GRAD_ATOL[family], "parameters after a step")
+    # prefill and 8 greedy decode steps, fed the host's token
+    atol = DECODE_ATOL[family]
+
+    def caches_close(got, want, what):
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            if b.dtype == torch.int32:
+                check(torch.equal(a.cpu(), b), f"[steps host] {name} {what}: slot_pos differs")
+            else:
+                close(a, b, atol, what)
+
+    out = {}
+    for where in ("host", "card"):
+        d = "cpu" if where == "host" else dev
+        params = tree_map(lambda v: v.to(d), host)
+        logits, caches = ST.make_prefill_step(cfg, max_len=72)(params, {"tokens": tokens.to(d)})
+        out[where] = dict(dev=d, params=params, steps=[logits], toks=[], prefill=caches, caches=caches)
+    caches_close(out["card"]["prefill"], out["host"]["prefill"], "prefill caches")
+    serve = ST.make_serve_step(cfg)
+    for i in range(8):
+        tok = torch.argmax(out["host"]["steps"][-1], -1).to(torch.int32)
+        for o in out.values():
+            o["toks"].append(torch.argmax(o["steps"][-1], -1).to(torch.int32))
+            logits, o["caches"] = serve(o["params"], tok.to(o["dev"]), 64 + i, o["caches"])
+            o["steps"].append(logits)
+    gap = 0.0
+    for i, (a, b) in enumerate(zip(out["card"]["steps"], out["host"]["steps"])):
+        close(a, b, atol, f"logits at step {i}")
+        gap = max(gap, float((a.cpu() - b).abs().max()))
+    caches_close(out["card"]["caches"], out["host"]["caches"], "caches after 8 steps")
+    agree = _near_tie_steps(out["host"]["steps"], out["host"]["toks"], out["card"]["toks"], 2 * gap)
+    print(f"[steps host] {name} ({cfg.num_layers} layers, {str(dtype)[6:]}): a SGD-M step, the prefill and 8 decode "
+          f"steps card against host within {'the CPU tests bounds' if f32 else '4 bf16 steps'} (largest "
+          f"{worst:.3f} of it); greedy tokens equal for {agree} of 8 steps before a near-tie")
+
+
+def phase_steps(dev, smi: str) -> dict:
+    """Phase 14, the step factories, optimizers, checkpoints and the train
+    and serve CLIs (A10c), each CLI through its main(argv) in process:
+
+    (a) serve gemma2-27b at its published width and full depth (46 layers,
+        B = 2, a prompt of 4,096, 16 tokens): the prefill and the first 4
+        decode steps against a forward over the prompt and the tokens so
+        far; phi3-mini-3.8b at full depth (32 layers, B = 4, a prompt of 64,
+        32 tokens), every decode step so;
+    (b) train phi3-mini-3.8b with AdamW at full width and depth, 3 steps, B
+        = 4, S = 128: finite losses, every leaf moved, the peak, each step's
+        loss and gradient, clip and update;
+    (c) the checkpoint: phi3-smoke trained 3 steps with --ckpt-dir, loaded
+        back on the card bit for bit; zlib's rate on a 100 MB bf16 leaf;
+    (d) the c2dfb CLI on qwen2-smoke with kernel_topk: B1 bf16 launches, the
+        wire bytes against the host's run, finite val-losses;
+    (e) card against host at smoke size: f32 phi3-, gemma2-, mamba2- and
+        mixtral-smoke (a SGD-M step, the prefill, 8 decode steps), and
+        phi3-smoke in bf16.
+
+    Returns (d)'s B1 launches and each run's wall and peak."""
+    t_phase = time.perf_counter()
+    gemma = serve_consistency("serve gemma2", GEMMA_SERVE, smi, checks=4, dev=dev)
+    # phi3 at 32 layers: its bf16 decode parts from the forward by more than the dense bound (4.45 steps at
+    # decode step 0 on an H100): the two round different operator orders (a 4-row decode product against a
+    # 384-row one) through every layer; the f32 check holds the decode path sharply
+    phi3 = serve_consistency("serve phi3", PHI3_SERVE, smi, checks=31, steps=A10B_STEPS, f32=True, dev=dev)
+    print(f"[steps] (a) in {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    train = train_full(smi, dev)
+    print(f"[steps] (b) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ckpt = checkpoint_on_card(smi, dev)
+    print(f"[steps] (c) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = c2dfb_cli(smi, dev)
+    print(f"[steps] (d) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name in ("phi3-mini-3.8b", "gemma2-27b", "mamba2-2.7b", "mixtral-8x7b"):
+        steps_card_against_host(name, torch.float32, dev)
+    steps_card_against_host("phi3-mini-3.8b", torch.bfloat16, dev)
+    print(f"[steps] (e) in {time.perf_counter() - t0:.1f} s; phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(cli_launches=launches, gemma_serve=gemma, phi3_serve=phi3, train=train, ckpt=ckpt)
+
+
 def _to(tree, dev):
     from repro_torch.transport.device import _on
 
@@ -3130,10 +3620,10 @@ def _to(tree, dev):
 
 
 def run_only(dev, only: list) -> int:
-    """``--only c4,lm,archs``: the named checks alone, in that order, after
-    the build (for working on one of them): "c4" phase 4's kernel_topk run
-    and phase 11's fused round on its states, "lm" phase 12, "archs" phase
-    13.  No result lines."""
+    """``--only c4,lm,archs,steps``: the named checks alone, in that order,
+    after the build (for working on one of them): "c4" phase 4's kernel_topk
+    run and phase 11's fused round on its states, "lm" phase 12, "archs"
+    phase 13, "steps" phase 14.  No result lines."""
     for name in only:  # in the order given
         if name == "c4":
             bundle = build_task(dev)
@@ -3144,8 +3634,10 @@ def run_only(dev, only: list) -> int:
             print(f"[only] phase 12: {phase_lm(dev)}")
         elif name == "archs":
             print(f"[only] phase 13: {phase_archs(dev)}")
+        elif name == "steps":
+            print(f"[only] phase 14: {phase_steps(dev, nvidia_smi())}")
         else:
-            fail(f"--only takes c4, lm and archs, not {name!r}")
+            fail(f"--only takes c4, lm, archs and steps, not {name!r}")
     print(f"[only] {only} passed")
     return 0
 
@@ -3252,6 +3744,10 @@ def main() -> int:
     kernels["block_topk"]["mamba2_launches"] = archs["block_topk_f32"]
     kernels["quantize"]["bf16"]["mamba2_launches"] = archs["quantize_bf16"]
     kernels["pack_sparse_blocks"]["mamba2_launches"] = archs["pack_sparse_blocks"]
+    # 14. the steps, optimizers, checkpoints and the train and serve CLIs at full width: the c2dfb CLI's B1 bf16
+    # launches under a new key
+    steps = phase_steps(dev, smi)
+    kernels["block_topk"]["bf16"]["cli_launches"] = steps["cli_launches"]
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

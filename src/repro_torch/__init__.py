@@ -6,10 +6,12 @@ compressors, Algorithm 2 inner loop, Algorithm 1 outer loop, the LM
 bilevel split), ``configs`` (the LM architectures), ``data`` (the paper's
 two tasks and the synthetic token streams), ``kernels`` (hand-written
 Hopper kernels with plain PyTorch versions beside them), ``models`` (the
-dense decoder transformer), ``net`` (exact wire codecs, the network
-fabric, topology schedules), ``obs`` (telemetry), ``async_gossip`` (the
-asynchronous engine) and ``transport`` (the simulated and the device
-transports).
+transformers, their decode path and the train, prefill and serve steps),
+``optim`` (SGD-M, AdamW, clipping, schedules), ``checkpoint`` (the
+reference's msgpack checkpoints), ``launch`` (the train and serve CLIs),
+``net`` (exact wire codecs, the network fabric, topology schedules),
+``obs`` (telemetry), ``async_gossip`` (the asynchronous engine) and
+``transport`` (the simulated and the device transports).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit ``device="cpu"`` they raise.  Importing this

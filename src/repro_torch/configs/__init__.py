@@ -1,13 +1,13 @@
 """Architecture registry (``repro.configs``'s counterpart): `get_config`,
-`ARCH_NAMES`, `LONG_CONTEXT_ARCHS` and `shape_applicable`.
-
-The reference's ``input_specs`` (the ``ShapeDtypeStruct`` stand-ins of a
-step's inputs and decode caches) belongs to the steps and decode path,
-which are not ported yet."""
+`ARCH_NAMES`, `LONG_CONTEXT_ARCHS`, `shape_applicable` and `input_specs`
+(a step's inputs as tensors on the ``meta`` device, PyTorch's stand-in for
+an unallocated array where the reference uses ``jax.ShapeDtypeStruct``)."""
 
 from __future__ import annotations
 
 import importlib
+
+import torch
 
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 
@@ -38,7 +38,7 @@ LONG_CONTEXT_ARCHS = frozenset(
 )
 
 __all__ = ["ARCH_NAMES", "INPUT_SHAPES", "LONG_CONTEXT_ARCHS", "InputShape", "ModelConfig", "get_config",
-           "shape_applicable"]
+           "input_specs", "shape_applicable"]
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -54,3 +54,36 @@ def shape_applicable(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
         if cfg.name in _ARCH_MODULES and cfg.name not in LONG_CONTEXT_ARCHS:
             return False, "full-attention arch: 524k dense KV decode skipped"
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Every model input of a step as a ``meta`` tensor: no allocation.
+
+    train:   tokens + labels (+ modality stub embeddings)
+    prefill: tokens (+ stubs)
+    decode:  one token + position + KV caches of shape.seq_len (+ stubs)
+    """
+    from repro_torch.models.transformer import init_caches
+
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    specs: dict = {}
+    if shape.kind == "train":
+        specs["tokens"] = meta(B, S)
+        specs["labels"] = meta(B, S)
+    elif shape.kind == "prefill":
+        specs["tokens"] = meta(B, S)
+    else:  # decode
+        specs["token"] = meta(B)
+        specs["pos"] = meta()
+        specs["caches"] = init_caches(cfg, B, S, dtype=cfg.dtype, device="meta")
+    if cfg.arch_type == "audio":
+        s_enc = max(cfg.enc_seq_ratio, S // cfg.enc_seq_ratio)
+        # decode reads a fixed encoder memory
+        specs["memory" if shape.kind == "decode" else "enc_embeds"] = meta(B, s_enc, cfg.d_model, dtype=cfg.dtype)
+    if cfg.arch_type == "vlm":
+        specs["memory"] = meta(B, cfg.num_patches, cfg.d_model, dtype=cfg.dtype)
+    return specs

@@ -2,8 +2,9 @@
 
 Conventions
 -----------
-* A tree is a tensor, a dict of trees or a list of trees.  Dicts iterate in
-  SORTED-KEY order and lists in order, as ``jax.tree`` does, so a tree
+* A tree is a tensor, a dict of trees, a list of trees or None.  Dicts
+  iterate in SORTED-KEY order and lists in order, and None holds no leaf
+  (an SGD-momentum state's absent second moment), as ``jax.tree`` does, so a tree
   flattens to the same leaf order in both packages (the
   hyper-representation backbone ``{w1, b1, w2, b2}`` flattens as ``b1, b2,
   w1, w2``; an LM's ``{"embed", "blocks": [block_0, ...], ...}`` as
@@ -20,10 +21,12 @@ from typing import Any, Callable, Iterable
 
 import torch
 
-Tree = Any  # torch.Tensor | dict[str, Tree] | list[Tree]
+Tree = Any  # torch.Tensor | dict[str, Tree] | list[Tree] | None
 
 
 def tree_leaves(tree: Tree) -> list[torch.Tensor]:
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, list):
@@ -32,6 +35,8 @@ def tree_leaves(tree: Tree) -> list[torch.Tensor]:
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {
             k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)

@@ -27,9 +27,20 @@ the reference's does.  MoE layers are the pattern positions where
 audio encoder (``params["encoder"]``) is bidirectional attention and MLP
 blocks over the stub frontend's frame embeddings (`encoder_forward`).
 
-The decode path (``init_caches``, ``cache_spec_tree``, ``decode_step``) is
-not ported yet; `repro_torch.models.attention` and
-`repro_torch.models.ssm` hold each layer's decode step.
+The decode path (`init_caches`, `cache_spec_tree`, `decode_step`) works on
+ONE model, as the reference's does: parameters, tokens and caches without
+the node axis (cache leaves (R, B, ...), stacked over the repeats; a cross
+position keeps a 1-slot cache, since its memory is fixed).  Inside, it
+gives the node-stacked layer functions a node axis of 1 (`one_node`, a
+view) and takes it off their caches again (`cache_on_node`,
+`cache_off_node`: every cache leaf but ``slot_pos`` carries the node axis
+in `repro_torch.models.attention` and `repro_torch.models.ssm`).  Each
+repeat's new caches are stacked again, as the reference's scan stacks
+them; ``pos`` is a Python integer (the absolute position of the token).
+
+Initialization fills each stacked (R, ...) leaf repeat by repeat
+(`_stacked`), so building a model holds one repeat's block beside the
+stack, not every repeat twice (gemma2-27b's blocks are 52 GB in bf16).
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.core.types import tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -45,9 +57,11 @@ from repro_torch.models.layers import (
     chunked_cross_entropy,
     dense_init,
     embed_init,
+    linear,
     mlp_apply,
     mlp_init,
     rms_norm,
+    softcap,
 )
 from repro_torch.models.remat import checkpoint
 
@@ -90,15 +104,24 @@ def _block_init(generator: torch.Generator, cfg, p_idx: int, with_cross: bool) -
     return params
 
 
-def _stack(reps: list) -> dict:
-    return tree_map(lambda *vs: torch.stack(vs), reps[0], *reps[1:])
+def _stacked(draw, n: int) -> dict:
+    """``n`` draws of ``draw()`` (a tree), stacked on a leading axis: each
+    stacked leaf is allocated once and filled draw by draw, so only one
+    draw's tree lives beside the stack.  The values are ``torch.stack``'s."""
+    first = draw()
+    out = tree_map(lambda v: v.new_empty((n, *v.shape)), first)
+    tree_map(lambda o, v: o[0].copy_(v), out, first)
+    del first
+    for r in range(1, n):
+        tree_map(lambda o, v: o[r].copy_(v), out, draw())
+    return out
 
 
 def _stacked_blocks_init(generator: torch.Generator, cfg, with_cross: bool = False) -> list:
     """One dict a pattern position, its leaves stacked over the R repeats
     (leading ``layers`` axis); drawn position by position, repeat by
     repeat."""
-    return [_stack([_block_init(generator, cfg, p, with_cross) for _ in range(cfg.repeats)])
+    return [_stacked(lambda: _block_init(generator, cfg, p, with_cross), cfg.repeats)
             for p in range(len(cfg.pattern))]
 
 
@@ -133,7 +156,7 @@ def init_lm_params(cfg, generator: torch.Generator, device=None) -> dict:
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, cfg.dtype)
     if cfg.enc_layers > 0:
         params["encoder"] = {
-            "blocks": _stack([_enc_block_init(generator, cfg) for _ in range(cfg.enc_layers)]),
+            "blocks": _stacked(lambda: _enc_block_init(generator, cfg), cfg.enc_layers),
             "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev),
         }
     return params
@@ -144,21 +167,18 @@ def init_lm_params(cfg, generator: torch.Generator, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(p: dict, cfg, p_idx: int, x: torch.Tensor, positions: torch.Tensor, memory=None):
-    """One block.  Returns (x, aux): aux (m,) is the block's load-balance
-    loss, zeros without a MoE."""
-    kind = cfg.layer_kind(p_idx)
+def _block(p: dict, cfg, x: torch.Tensor, mixer, cross):
+    """One block, pre-norm residual: x += mixer(norm1(x)); x +=
+    cross(p["cross"], norm_x(x)) (audio decoder blocks); x +=
+    mlp_or_moe(norm2(x)).  ``mixer(h)`` returns (out, state): the mixer's
+    second output (its k and v, or a Mamba layer's state or cache) comes
+    back as the third result.  Returns (x, aux, state): aux (m,) is the
+    block's load-balance loss, zeros without a MoE."""
     aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if kind == "mamba":
-        out, _ = ssm_mod.mamba_apply(p["mamba"], cfg, h)
-    else:
-        out, _ = attn.attn_apply(p["attn"], cfg, h, positions, kind=kind, memory=memory if kind == "cross" else None)
+    out, state = mixer(rms_norm(x, p["norm1"], cfg.norm_eps))
     x = x + out
     if "cross" in p:
-        h = rms_norm(x, p["norm_x"], cfg.norm_eps)
-        out, _ = attn.attn_apply(p["cross"], cfg, h, positions, kind="cross", memory=memory)
-        x = x + out
+        x = x + cross(p["cross"], rms_norm(x, p["norm_x"], cfg.norm_eps))
     if cfg.d_ff > 0:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         if "moe" in p:
@@ -166,6 +186,29 @@ def _apply_block(p: dict, cfg, p_idx: int, x: torch.Tensor, positions: torch.Ten
         else:
             out = mlp_apply(p["mlp"], h, cfg.mlp_type)
         x = x + out
+    return x, aux, state
+
+
+def _mixer(p: dict, cfg, p_idx: int, positions: torch.Tensor, memory, return_cache: bool = False):
+    """Pattern position ``p_idx``'s train / prefill mixer over ``p``'s
+    weights: attention of its kind (a cross position over ``memory``), or
+    Mamba-2 (its decode cache with ``return_cache``)."""
+    kind = cfg.layer_kind(p_idx)
+    if kind == "mamba":
+        return lambda h: ssm_mod.mamba_apply(p["mamba"], cfg, h, return_cache=return_cache)
+    mem = memory if kind == "cross" else None
+    return lambda h: attn.attn_apply(p["attn"], cfg, h, positions, kind=kind, memory=mem)
+
+
+def _cross(cfg, positions: torch.Tensor, memory):
+    """The audio decoder's cross sublayer over ``memory``."""
+    return lambda w, h: attn.attn_apply(w, cfg, h, positions, kind="cross", memory=memory)[0]
+
+
+def _apply_block(p: dict, cfg, p_idx: int, x: torch.Tensor, positions: torch.Tensor, memory=None):
+    """One block.  Returns (x, aux): aux (m,) is the block's load-balance
+    loss, zeros without a MoE."""
+    x, aux, _ = _block(p, cfg, x, _mixer(p, cfg, p_idx, positions, memory), _cross(cfg, positions, memory))
     return x, aux
 
 
@@ -188,6 +231,27 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens + offsets, embed.reshape(m * V, -1))
 
 
+def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """The input embeddings of ``tokens`` (m, ...): each node's rows, in the
+    model's dtype, times sqrt(d_model) with ``cfg.scale_embed``."""
+    x = embed_tokens(params["embed"], tokens).to(cfg.dtype)
+    if cfg.scale_embed:
+        x = x * torch.sqrt(torch.full((), float(cfg.d_model), dtype=torch.float32, device=x.device)).to(cfg.dtype)
+    return x
+
+
+def lm_head(params: dict, cfg) -> torch.Tensor:
+    """The output projection (m, D, V): ``lm_head``, or the embedding's
+    transpose with tied embeddings."""
+    return params["lm_head"] if not cfg.tie_embeddings else params["embed"].transpose(1, 2)
+
+
+def head_logits(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Logits of final hidden states x (m, B, D): the head product in the
+    model's dtype, cast to f32, soft-capped."""
+    return softcap(linear(x, lm_head(params, cfg)).to(torch.float32), cfg.logit_softcap)
+
+
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
@@ -198,9 +262,7 @@ def forward_hidden(params: dict, cfg, tokens: torch.Tensor, memory=None) -> tupl
     S, D) and the auxiliary loss (m,), summed over the blocks."""
     check_remat(cfg)
     m, B, S = tokens.shape
-    x = embed_tokens(params["embed"], tokens).to(cfg.dtype)
-    if cfg.scale_embed:
-        x = x * torch.sqrt(torch.full((), float(cfg.d_model), dtype=torch.float32, device=x.device)).to(cfg.dtype)
+    x = embed(params, cfg, tokens)
     positions = _positions(B, S, tokens.device)
     aux = torch.zeros((m,), dtype=torch.float32, device=x.device)
     remat = cfg.remat and cfg.remat_policy != "none"
@@ -244,6 +306,98 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor, memor
     """Each node's LM loss (m,): the cross-entropy of the next token plus
     ``aux_weight`` times the auxiliary loss."""
     hidden, aux = forward_hidden(params, cfg, tokens, memory=memory)
-    head = params["lm_head"] if not cfg.tie_embeddings else params["embed"].transpose(1, 2)
-    loss = chunked_cross_entropy(hidden, labels, head, chunk=min(512, tokens.shape[2]), logit_cap=cfg.logit_softcap)
+    loss = chunked_cross_entropy(hidden, labels, lm_head(params, cfg), chunk=min(512, tokens.shape[2]), logit_cap=cfg.logit_softcap)
     return loss + aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# decode (one model: no node axis)
+# ---------------------------------------------------------------------------
+
+
+def one_node(tree):
+    """One model's tree as a view with a node axis of 1 (leaves (1, ...))."""
+    return tree_map(lambda v: v.unsqueeze(0), tree)
+
+
+def cache_on_node(cache: dict) -> dict:
+    """One layer's cache without the node axis -> the layer functions'
+    layout: every leaf but ``slot_pos`` gains a node axis of 1 (a view)."""
+    return {k: v if k == "slot_pos" else v.unsqueeze(0) for k, v in cache.items()}
+
+
+def cache_off_node(cache: dict) -> dict:
+    """The inverse of `cache_on_node`."""
+    return {k: v if k == "slot_pos" else v[0] for k, v in cache.items()}
+
+
+def stack_repeats(per_repeat: list) -> dict:
+    """One pattern position's caches of the R repeats -> leaves (R, ...)."""
+    return {k: torch.stack([c[k] for c in per_repeat]) for k in per_repeat[0]}
+
+
+def init_caches(cfg, batch: int, s_max: int, dtype=None, device=None) -> list:
+    """Zero decode caches, a dict a pattern position, leaves (R, ...)
+    stacked over the repeats: attention k and v (R, B, size, KV, hd) with
+    ``slot_pos`` (R, size) all -1 (size s_max, or the window of a
+    sliding-window layer; 1 at a cross position), a Mamba layer's f32 state
+    (R, B, H, P, N) and conv inputs (R, B, D_CONV - 1, conv_dim).  On
+    ``cuda`` unless ``device`` says otherwise (without a card it raises);
+    ``device="meta"`` allocates nothing."""
+    device = torch.device("meta") if device is not None and torch.device(device).type == "meta" \
+        else resolve_device(device)
+    R = cfg.repeats
+    caches = []
+    for p_idx in range(len(cfg.pattern)):
+        kind = cfg.layer_kind(p_idx)
+        if kind == "mamba":
+            one = ssm_mod.make_ssm_cache(cfg, 1, batch, dtype, device=device)
+        elif kind == "cross":
+            one = attn.make_cache(cfg, 1, batch, 1, kind="full", dtype=dtype, device=device)
+        else:
+            one = attn.make_cache(cfg, 1, batch, s_max, kind=kind, dtype=dtype, device=device)
+        caches.append({k: v.unsqueeze(0).expand(R, *v.shape).clone() for k, v in cache_off_node(one).items()})
+    return caches
+
+
+def cache_spec_tree(cfg) -> list:
+    """The cache tree's logical axes, the reference's: ``("layers", ...)``
+    in front of each layer's."""
+    out = []
+    for p_idx in range(len(cfg.pattern)):
+        kind = cfg.layer_kind(p_idx)
+        s = ssm_mod.ssm_cache_specs() if kind == "mamba" else attn.cache_specs(kind)
+        out.append({k: ("layers",) + tuple(ax) for k, ax in s.items()})
+    return out
+
+
+def _decode_mixer(p: dict, cfg, p_idx: int, cache: dict, pos: int, memory):
+    kind = cfg.layer_kind(p_idx)
+    if kind == "mamba":
+        return lambda h: ssm_mod.mamba_decode(p["mamba"], cfg, h, cache)
+    mem = memory if kind == "cross" else None
+    return lambda h: attn.attn_decode(p["attn"], cfg, h, cache, pos, kind=kind, memory=mem)
+
+
+@torch.no_grad()
+def decode_step(params: dict, cfg, token: torch.Tensor, caches: list, pos: int, memory=None):
+    """One-token decode through the whole stack, for one model.
+
+    token: (B,) integers; caches as from `init_caches` or the prefill; pos:
+    the token's absolute position; memory: (B, S_mem, D), the encoder's
+    output or the image patches, or None.  Returns (logits (B, V) f32,
+    new caches); the caches given are not changed."""
+    pos = int(pos)
+    p1 = one_node(params)
+    x = embed(p1, cfg, token.reshape(1, -1, 1))
+    mem = None if memory is None else memory.unsqueeze(0)
+    cross = lambda w, h: attn.attn_decode(w, cfg, h, None, pos, kind="cross", memory=mem)[0]  # noqa: E731
+    new = [[] for _ in cfg.pattern]
+    for r in range(cfg.repeats):
+        for p_idx, stacked in enumerate(p1["blocks"]):
+            blk = tree_map(lambda v: v[:, r], stacked)
+            cache = cache_on_node({k: v[r] for k, v in caches[p_idx].items()})
+            x, _, cache = _block(blk, cfg, x, _decode_mixer(blk, cfg, p_idx, cache, pos, mem), cross)
+            new[p_idx].append(cache_off_node(cache))
+    x = rms_norm(x, p1["final_norm"], cfg.norm_eps)
+    return head_logits(p1, cfg, x[:, :, 0])[0], [stack_repeats(c) for c in new]

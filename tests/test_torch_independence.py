@@ -109,3 +109,15 @@ def test_unsupported_devices_raise():
         block_topk_kernel(x, 8)
     with pytest.raises(ValueError, match="cpu or cuda"):
         pack_sparse_blocks(x, 8, 128)
+
+
+def test_init_caches_needs_an_explicit_cpu_device():
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_caches
+
+    _no_card()
+    cfg = get_config("gemma2-27b", smoke=True)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        init_caches(cfg, 2, 8)
+    assert init_caches(cfg, 2, 8, device="cpu")[0]["k"].device.type == "cpu"
+    assert init_caches(cfg, 2, 8, device="meta")[0]["k"].device.type == "meta"
