@@ -1,5 +1,7 @@
 """The framework's launchers (``repro.launch``'s counterparts): ``python -m
-repro_torch.launch.train`` and ``python -m repro_torch.launch.serve``."""
+repro_torch.launch.train``, ``python -m repro_torch.launch.serve`` and the
+launch planner ``python -m repro_torch.launch.dryrun`` (with ``mesh`` and
+``roofline``)."""
 
 from __future__ import annotations
 

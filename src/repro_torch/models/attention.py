@@ -30,29 +30,30 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_init, linear, softcap
+from repro_torch.models.layers import apply_rope, bias_init, dense_init, init_device, linear, softcap
+from repro_torch.models.sharded import einsum, sharded_evenly, split_dim
 from repro_torch.models.remat import checkpoint
 
 NEG_INF = -2.0e38
 
 
-def attn_init(generator: torch.Generator, cfg, kind: str) -> dict:
+def attn_init(generator, cfg, kind: str) -> tuple[dict, dict]:
     """One attention layer's weights (wq, wk, wv, wo, drawn in that order),
-    plus zero q/k/v biases when ``cfg.qkv_bias``."""
+    plus zero q/k/v biases when ``cfg.qkv_bias``, and their axes."""
     d, dt = cfg.d_model, cfg.dtype
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    p = {
-        "wq": dense_init(generator, d, H * hd, dt),
-        "wk": dense_init(generator, d, KV * hd, dt),
-        "wv": dense_init(generator, d, KV * hd, dt),
-        "wo": dense_init(generator, H * hd, d, dt),
-    }
+    wq, sq = dense_init(generator, d, H * hd, "embed", "heads_hd", dt)
+    wk, sk = dense_init(generator, d, KV * hd, "embed", "kv_hd", dt)
+    wv, sv = dense_init(generator, d, KV * hd, "embed", "kv_hd", dt)
+    wo, so = dense_init(generator, H * hd, d, "heads_hd", "embed", dt)
+    p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+    s = {"wq": sq, "wk": sk, "wv": sv, "wo": so}
     if cfg.qkv_bias:
-        dev = generator.device
-        p["bq"] = torch.zeros((H * hd,), dtype=dt, device=dev)
-        p["bk"] = torch.zeros((KV * hd,), dtype=dt, device=dev)
-        p["bv"] = torch.zeros((KV * hd,), dtype=dt, device=dev)
-    return p
+        dev = init_device(generator)
+        p["bq"], s["bq"] = bias_init(H * hd, "heads_hd", dt, dev)
+        p["bk"], s["bk"] = bias_init(KV * hd, "kv_hd", dt, dev)
+        p["bv"], s["bv"] = bias_init(KV * hd, "kv_hd", dt, dev)
+    return p, s
 
 
 def _project_qkv(p, cfg, x, positions, memory=None, rope=True):
@@ -67,9 +68,7 @@ def _project_qkv(p, cfg, x, positions, memory=None, rope=True):
         q = q + p["bq"][:, None, None]
         k = k + p["bk"][:, None, None]
         v = v + p["bv"][:, None, None]
-    q = q.reshape(m, B, -1, H, hd)
-    k = k.reshape(m, B, -1, KV, hd)
-    v = v.reshape(m, B, -1, KV, hd)
+    q, k, v = split_dim(q, -1, H, hd), split_dim(k, -1, KV, hd), split_dim(v, -1, KV, hd)
     if rope and cfg.use_rope and memory is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -80,8 +79,8 @@ def _gqa_scores(q, k, cfg):
     """q: (m, B, Sq, H, hd), k: (m, B, Sk, KV, hd) -> (m, B, KV, H//KV, Sq, Sk), f32."""
     m, B, Sq, H, hd = q.shape
     KV = k.shape[3]
-    qg = q.reshape(m, B, Sq, KV, H // KV, hd)
-    scores = torch.einsum("nbqkgh,nbskh->nbkgqs", qg, k).to(torch.float32)
+    qg = split_dim(q, 3, KV, H // KV)
+    scores = einsum("nbqkgh,nbskh->nbkgqs", qg, k).to(torch.float32)
     # a tensor made by an operator, not a constant: the oracle graphs share
     # what reads x alone by expression, and a constant is a new one in each
     # trace (and a divisor, as XLA divides, where a Python number multiplies
@@ -92,8 +91,25 @@ def _gqa_scores(q, k, cfg):
 
 def _gqa_out(probs, v):
     """probs: (m, B, KV, G, Sq, Sk), v: (m, B, Sk, KV, hd) -> (m, B, Sq, H*hd)."""
-    out = torch.einsum("nbkgqs,nbskh->nbqkgh", probs, v)
+    out = einsum("nbkgqs,nbskh->nbqkgh", probs, v)
     return out.reshape(out.shape[0], out.shape[1], out.shape[2], -1)
+
+
+def _kv_for_heads(q, k, v):
+    """k and v for the products with q: as they are, or, where q's heads
+    are sharded over a mesh axis that does not divide the KV heads (a
+    DTensor of the dry run: 8 KV heads on a model axis of 16), each KV head
+    repeated for its H / KV query heads, so the products group nothing
+    and q keeps its sharding.  A plain tensor is never repeated."""
+    H, KV = q.shape[3], k.shape[3]
+    if KV == H or sharded_evenly(q, 3, KV):
+        return k, v
+
+    def rep(t):
+        m, B, S, _, hd = t.shape
+        return t[:, :, :, :, None, :].expand(m, B, S, KV, H // KV, hd).reshape(m, B, S, H, hd)
+
+    return rep(k), rep(v)
 
 
 def _chunk_attn(q_c, qpos_c, k, v, kpos, cfg, kind):
@@ -121,10 +137,11 @@ def attn_apply(p, cfg, x, positions, kind="full", memory=None, q_chunk=1024):
     kpos = positions if kind != "cross" else None
     q_chunk = min(q_chunk, S)
     assert S % q_chunk == 0, (S, q_chunk)
+    kr, vr = _kv_for_heads(q, k, v)
     outs = []
     for c in range(max(1, S // q_chunk)):
         sl = slice(c * q_chunk, (c + 1) * q_chunk)
-        (out,) = checkpoint(_chunk_attn, q[:, :, sl], positions[:, sl], k, v, kpos, cfg, kind)
+        (out,) = checkpoint(_chunk_attn, q[:, :, sl], positions[:, sl], kr, vr, kpos, cfg, kind)
         outs.append(out)
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
     return linear(out, p["wo"]), (k, v)

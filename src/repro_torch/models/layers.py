@@ -10,13 +10,22 @@ model is ``m = 1``.  Parameters are plain nested dicts of tensors; the
 init functions draw from a passed-in ``torch.Generator`` with the
 reference's distributions and scales (a normal times 1/sqrt(in_dim) for a
 dense weight, times 0.02 for an embedding; ones for a norm, zeros for a
-bias), and return the tensor only: the reference's logical-axis specs
-feed its mesh sharding, which has no counterpart on one card.
+bias).  As in the reference, every init returns ``(tensor, axes)``
+beside each other: the leaf and its LOGICAL axes, a tuple of names
+(``"embed"``, ``"ffn"``, ...) or None for each of its dimensions, which
+`repro_torch.sharding.partitioning` resolves against a mesh.  The axes
+describe one model's leaf (no node axis).  With ``generator=None`` the
+inits draw nothing and allocate nothing: every leaf is a ``meta`` tensor
+of its shape and dtype (`repro_torch.models.transformer.abstract_lm_params`).
 
-The reference's activation-sharding and weight-gathering hooks
-(``set_activation_constraint``, ``gather_weight``) pin layouts on a TPU
-mesh and are identities without one; the port runs on one device, so they
-are left out.
+The sharding hooks, as the reference's: a launcher installs
+``set_activation_constraint(fn)`` (the dry run's pins a DTensor
+activation's batch over the data axes, `repro_torch.launch.dryrun`) and
+the model calls `shard_activation` where the reference does;
+``set_weight_gather`` / `gather_weight` are set by the dry run and called
+nowhere, as in the reference.  Both are identities while unset.  An
+activation here carries the node axis in front, so the reference's
+leading (batch) dimension is dimension 1.
 
 Arithmetic follows the reference op by op, in its dtypes: norms and RoPE
 in f32, cast back to the activation's dtype; ``jax.nn.gelu``'s default is
@@ -30,30 +39,85 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.remat import checkpoint
+from repro_torch.models.remat import checkpoint, product
+from repro_torch.models.sharded import bmm
+
+# ---------------------------------------------------------------------------
+# sharding hooks
+# ---------------------------------------------------------------------------
+
+_ACT_CONSTRAINT = None
+_WEIGHT_GATHER = None
+
+
+def set_activation_constraint(fn) -> None:
+    """fn(x) -> x pinned to a layout (batch, dimension 1, over the data
+    axes), or None to unset."""
+    global _ACT_CONSTRAINT
+    _ACT_CONSTRAINT = fn
+
+
+def shard_activation(x: torch.Tensor) -> torch.Tensor:
+    if _ACT_CONSTRAINT is None:
+        return x
+    return _ACT_CONSTRAINT(x)
+
+
+def set_weight_gather(fn) -> None:
+    """fn(w) -> w replicated over the data axes (its last dimension over
+    "model"), or None to unset."""
+    global _WEIGHT_GATHER
+    _WEIGHT_GATHER = fn
+
+
+def gather_weight(w: torch.Tensor) -> torch.Tensor:
+    if _WEIGHT_GATHER is None:
+        return w
+    return _WEIGHT_GATHER(w)
+
 
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
 
 
-def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, dtype, scale=None) -> torch.Tensor:
+def init_device(generator: torch.Generator | None) -> torch.device:
+    """Where an init puts its leaves: the generator's device, or ``meta``
+    without one."""
+    return torch.device("meta") if generator is None else generator.device
+
+
+def normal(generator: torch.Generator | None, shape: tuple) -> torch.Tensor:
+    """f32 standard normals of ``shape`` from ``generator``; without one, a
+    meta tensor (no draw)."""
+    if generator is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
+
+
+def uniform(generator: torch.Generator | None, shape: tuple) -> torch.Tensor:
+    """f32 uniforms on [0, 1) of ``shape`` from ``generator``; without one,
+    a meta tensor (no draw)."""
+    if generator is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.rand(shape, generator=generator, dtype=torch.float32, device=generator.device)
+
+
+def dense_init(generator, in_dim: int, out_dim: int, in_ax, out_ax, dtype, scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    w = torch.randn((in_dim, out_dim), generator=generator, dtype=torch.float32, device=generator.device)
-    return (w * scale).to(dtype)
+    return (normal(generator, (in_dim, out_dim)) * scale).to(dtype), (in_ax, out_ax)
 
 
-def embed_init(generator: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tensor:
-    w = torch.randn((vocab, dim), generator=generator, dtype=torch.float32, device=generator.device)
-    return (w * 0.02).to(dtype)
+def embed_init(generator, vocab: int, dim: int, dtype):
+    return (normal(generator, (vocab, dim)) * 0.02).to(dtype), ("vocab", "embed")
 
 
-def norm_init(dim: int, dtype, device=None) -> torch.Tensor:
-    return torch.ones((dim,), dtype=dtype, device=device)
+def norm_init(dim: int, dtype, device=None):
+    return torch.ones((dim,), dtype=dtype, device=device), (None,)
 
 
-def bias_init(dim: int, dtype, device=None) -> torch.Tensor:
-    return torch.zeros((dim,), dtype=dtype, device=device)
+def bias_init(dim: int, ax, dtype, device=None):
+    return torch.zeros((dim,), dtype=dtype, device=device), (ax,)
 
 
 # ---------------------------------------------------------------------------
@@ -63,9 +127,12 @@ def bias_init(dim: int, dtype, device=None) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` node by node: x (m, ..., in), w (m, in, out) -> (m, ..., out),
-    one batched product over the nodes."""
+    one batched product over the nodes.  With one node (m = 1, the one-model
+    steps) it is the reference's product with no batch dimension, whose
+    output the ``"dots"`` recompute policy keeps (`remat.product`)."""
     m = x.shape[0]
-    out = torch.bmm(x.reshape(m, -1, x.shape[-1]), w)
+    x2 = x.reshape(m, -1, x.shape[-1])
+    out = product(x2, w) if m == 1 else bmm(x2, w)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -124,18 +191,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(generator: torch.Generator, cfg) -> dict:
+def mlp_init(generator, cfg) -> tuple[dict, dict]:
     """The configured MLP's weights (wi, wg, wo for the gated types; wi, wo
-    otherwise), drawn in that order."""
+    otherwise), drawn in that order, and their axes."""
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.dtype
+    wi, si = dense_init(generator, d, f, "embed", "ffn", dt)
     if cfg.mlp_type in ("swiglu", "geglu"):
-        wi = dense_init(generator, d, f, dt)
-        wg = dense_init(generator, d, f, dt)
-        wo = dense_init(generator, f, d, dt)
-        return {"wi": wi, "wg": wg, "wo": wo}
-    wi = dense_init(generator, d, f, dt)
-    wo = dense_init(generator, f, d, dt)
-    return {"wi": wi, "wo": wo}
+        wg, sg = dense_init(generator, d, f, "embed", "ffn", dt)
+        wo, so = dense_init(generator, f, d, "ffn", "embed", dt)
+        return {"wi": wi, "wg": wg, "wo": wo}, {"wi": si, "wg": sg, "wo": so}
+    wo, so = dense_init(generator, f, d, "ffn", "embed", dt)
+    return {"wi": wi, "wo": wo}, {"wi": si, "wo": so}
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:

@@ -43,7 +43,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _silu, dense_init, linear, rms_norm
+from repro_torch.models.layers import _silu, dense_init, init_device, linear, normal, rms_norm, uniform
+from repro_torch.models.sharded import cumsum, matmul, pad_front
 
 D_CONV = 4  # depthwise causal conv width
 
@@ -54,21 +55,21 @@ def ssm_dims(cfg) -> tuple[int, int]:
     return d_inner, conv_dim
 
 
-def mamba_init(generator: torch.Generator, cfg) -> dict:
+def mamba_init(generator, cfg) -> tuple[dict, dict]:
     """One Mamba-2 layer's parameters, drawn in this order: w_in, w_out,
     conv_w (a normal over sqrt(D_CONV)), a_log (log of a uniform on [1,
-    16]); d_skip ones, dt_bias zeros (both f32), norm ones."""
+    16]); d_skip ones, dt_bias zeros (both f32), norm ones; and their
+    axes."""
     d, dt = cfg.d_model, cfg.dtype
     H, N, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
     d_inner, conv_dim = ssm_dims(cfg)
-    dev = generator.device
+    dev = init_device(generator)
     in_dim = 2 * d_inner + 2 * G * N + H  # z, x, B, C, dt
-    w_in = dense_init(generator, d, in_dim, dt)
-    w_out = dense_init(generator, d_inner, d, dt)
-    conv_w = torch.randn((D_CONV, conv_dim), generator=generator, dtype=torch.float32, device=dev)
-    conv_w = (conv_w / math.sqrt(D_CONV)).to(dt)
-    a = torch.rand((H,), generator=generator, dtype=torch.float32, device=dev) * 15.0 + 1.0
-    return {
+    w_in, s_in = dense_init(generator, d, in_dim, "embed", "ssm_in", dt)
+    w_out, s_out = dense_init(generator, d_inner, d, "ssm_in", "embed", dt)
+    conv_w = (normal(generator, (D_CONV, conv_dim)) / math.sqrt(D_CONV)).to(dt)
+    a = uniform(generator, (H,)) * 15.0 + 1.0
+    p = {
         "w_in": w_in,
         "w_out": w_out,
         "conv_w": conv_w,
@@ -77,6 +78,9 @@ def mamba_init(generator: torch.Generator, cfg) -> dict:
         "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
         "norm": torch.ones((d_inner,), dtype=dt, device=dev),
     }
+    s = {"w_in": s_in, "w_out": s_out, "conv_w": (None, "ssm_in"), "a_log": (None,), "d_skip": (None,),
+         "dt_bias": (None,), "norm": (None,)}
+    return p, s
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -100,7 +104,7 @@ def _causal_conv(xBC: torch.Tensor, conv_w: torch.Tensor, conv_state: torch.Tens
     if conv_state is not None:
         xfull = torch.cat([conv_state, xBC], dim=2)
     else:
-        xfull = F.pad(xBC, (0, 0, D_CONV - 1, 0))
+        xfull = pad_front(xBC, 2, D_CONV - 1)
     S = xBC.shape[2]
     out = None
     for i in range(D_CONV):
@@ -113,7 +117,7 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     """Stable segment sum: out[..., i, j] = sum_{j < k <= i} a[..., k], -inf
     above the diagonal (so exp gives 0 there, and a finite gradient)."""
     Q = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
+    cs = cumsum(a, -1)
     out = cs[..., :, None] - cs[..., None, :]
     mask = torch.ones((Q, Q), dtype=torch.bool, device=a.device).tril()
     return torch.where(mask, out, float("-inf"))
@@ -145,21 +149,21 @@ def ssd_chunked(cfg, x, B_mat, C_mat, dt, a_log, init_state=None):
         xf = x_q.to(f32)
         # intra-chunk (the dual, attention-like form)
         L = torch.exp(_segsum(adt_q.transpose(2, 3)))  # (m, B, H, Q, Q)
-        scores = torch.matmul(C_q.permute(0, 1, 3, 2, 4), B_q.permute(0, 1, 3, 4, 2)).to(f32)  # (m, B, H, q, k)
+        scores = matmul(C_q.permute(0, 1, 3, 2, 4), B_q.permute(0, 1, 3, 4, 2)).to(f32)  # (m, B, H, q, k)
         M = scores * L
         xdt = (xf * dt_q[..., None]).permute(0, 1, 3, 2, 4)  # (m, B, H, k, P)
-        y_diag = torch.matmul(M, xdt)  # (m, B, H, q, P)
+        y_diag = matmul(M, xdt)  # (m, B, H, q, P)
         # the carried state's contribution to this chunk
-        cs = torch.cumsum(adt_q, dim=2)  # (m, B, Q, H)
+        cs = cumsum(adt_q, 2)  # (m, B, Q, H)
         decay_in = torch.exp(cs)
         Cd = (C_q.to(f32) * decay_in[..., None]).permute(0, 1, 3, 2, 4)  # (m, B, H, q, N)
-        y_off = torch.matmul(Cd, state.transpose(-1, -2))  # (m, B, H, q, P)
+        y_off = matmul(Cd, state.transpose(-1, -2))  # (m, B, H, q, P)
         # the state for the next chunk
         seg = torch.sum(adt_q, dim=2)  # (m, B, H): the chunk's total decay
         decay_out = torch.exp(seg[:, :, None, :] - cs)  # (m, B, Q, H)
         w = dt_q * decay_out
         Bw = (B_q.to(f32) * w[..., None]).permute(0, 1, 3, 2, 4)  # (m, B, H, q, N)
-        new_contrib = torch.matmul(xf.permute(0, 1, 3, 4, 2), Bw)  # (m, B, H, P, N)
+        new_contrib = matmul(xf.permute(0, 1, 3, 4, 2), Bw)  # (m, B, H, P, N)
         state = state * torch.exp(seg)[..., None, None] + new_contrib
         ys.append((y_diag + y_off).to(x.dtype).permute(0, 1, 3, 2, 4))  # (m, B, q, H, P)
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=2)
@@ -233,7 +237,7 @@ def mamba_decode(p: dict, cfg, x_t: torch.Tensor, cache: dict):
     da = torch.exp(A[:, None] * dt)  # (m, B, H)
     Bdt = B_v.to(f32) * dt[..., None]  # (m, B, H, N)
     state = cache["state"] * da[..., None, None] + x_in.to(f32)[..., :, None] * Bdt[..., None, :]
-    y = torch.matmul(state, C_v.to(f32)[..., None])[..., 0]  # (m, B, H, P)
+    y = matmul(state, C_v.to(f32)[..., None])[..., 0]  # (m, B, H, P)
     y = y + x_in.to(f32) * p["d_skip"][:, None, :, None]
     y = y.reshape(m, Bsz, 1, H * P).to(x_t.dtype)
     y = rms_norm(y * _silu(z), p["norm"])

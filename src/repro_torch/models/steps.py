@@ -43,6 +43,17 @@ def _memory_from_batch(params, cfg, batch):
     return None
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient (the dry run's sharded step) brought to its
+    parameter's placements, a Partial sum reduced, as the reference's
+    gradient takes its parameter's sharding; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(cfg, optimizer_name: str = "adamw", lr: float = 3e-4, clip: float = 1.0,
                     moment_dtype=torch.float32):
     opt = make_optimizer(optimizer_name, moment_dtype=moment_dtype)
@@ -53,6 +64,7 @@ def make_train_step(cfg, optimizer_name: str = "adamw", lr: float = 3e-4, clip: 
         memory = _memory_from_batch(p1, cfg, batch)
         loss = T.lm_loss(p1, cfg, batch["tokens"].unsqueeze(0), batch["labels"].unsqueeze(0), memory=memory)[0]
         grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
+        grads = [_placed_like(g, v) for g, v in zip(grads, live)]
         del live, p1, memory
         grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads), clip)
         params, opt_state = opt.update(grads, opt_state, params, lr)
@@ -82,6 +94,8 @@ def _prefill_cache(cfg, kind: str, state, S: int, max_len) -> dict:
         order = torch.argsort(kept % size)
         return {"k": k[:, -size:][:, order], "v": v[:, -size:][:, order], "slot_pos": kept[order]}
     pad = max(max_len or S, S) - S
+    if not pad:  # (a DTensor's pad by nothing fails on some torch versions)
+        return {"k": k, "v": v, "slot_pos": torch.arange(S, dtype=torch.int32, device=dev)}
     return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)), "v": F.pad(v, (0, 0, 0, 0, 0, pad)),
             "slot_pos": torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
                                    torch.full((pad,), -1, dtype=torch.int32, device=dev)])}
@@ -108,6 +122,7 @@ def make_prefill_step(cfg, max_len=None):
                 blk = tree_map(lambda v: v[:, r], stacked)
                 mixer = T._mixer(blk, cfg, p_idx, positions, memory, return_cache=True)
                 x, _, state = T._block(blk, cfg, x, mixer, cross)
+                x = T.shard_activation(x)
                 caches[p_idx].append(_prefill_cache(cfg, cfg.layer_kind(p_idx), state, S, max_len))
         x = T.rms_norm(x, p1["final_norm"], cfg.norm_eps)
         return T.head_logits(p1, cfg, x[:, :, -1])[0], [T.stack_repeats(c) for c in caches]

@@ -10,9 +10,11 @@ leading ``layers`` axis (behind the node axis: leaves (m, R, ...)).
 applying the P block kinds in order and summing the blocks' auxiliary
 (load-balance) losses; with ``cfg.remat`` each repeat is recomputed in the
 backward pass (`repro_torch.models.remat.checkpoint`, the reference's
-``jax.checkpoint`` with the "nothing" policy), the running auxiliary loss
-and the modality memory inputs of the recomputed region, so the gradient
-reaches the encoder through the memory.
+``jax.checkpoint`` with its ``cfg.remat_policy``, "nothing" or "dots"),
+the running auxiliary loss and the modality memory inputs of the
+recomputed region, so the gradient reaches the encoder through the
+memory.  The activations pass `shard_activation` where the reference's
+do: after the embedding and after every block.
 
 Block structure (pre-norm residual):
     x += mixer(norm(x))            mixer: attention of the kind, or Mamba-2
@@ -41,6 +43,9 @@ them; ``pos`` is a Python integer (the absolute position of the token).
 Initialization fills each stacked (R, ...) leaf repeat by repeat
 (`_stacked`), so building a model holds one repeat's block beside the
 stack, not every repeat twice (gemma2-27b's blocks are 52 GB in bf16).
+The inits return each leaf's logical axes beside it, as the reference's
+do; `abstract_lm_params` gives the shapes (meta tensors) and the axes
+without drawing or allocating.
 """
 
 from __future__ import annotations
@@ -57,24 +62,24 @@ from repro_torch.models.layers import (
     chunked_cross_entropy,
     dense_init,
     embed_init,
+    init_device,
     linear,
     mlp_apply,
     mlp_init,
+    norm_init,
     rms_norm,
+    shard_activation,
     softcap,
 )
 from repro_torch.models.remat import checkpoint
+from repro_torch.models.sharded import gathered_on
 
 
 def check_remat(cfg) -> None:
-    """Raise NotImplementedError for the ``"dots"`` recompute policy (no
-    config uses it): the port recomputes whole repeats ("nothing") or
-    nothing ("none")."""
-    if cfg.remat and cfg.remat_policy not in ("nothing", "none"):
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: the port recomputes whole repeats (\"nothing\") or nothing "
-            "(\"none\")"
-        )
+    """Raise ValueError for a recompute policy the reference does not
+    have (it has "nothing", "dots" and "none")."""
+    if cfg.remat and cfg.remat_policy not in ("nothing", "dots", "none"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: have \"nothing\", \"dots\" and \"none\"")
 
 
 # ---------------------------------------------------------------------------
@@ -82,57 +87,81 @@ def check_remat(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _block_init(generator: torch.Generator, cfg, p_idx: int, with_cross: bool) -> dict:
-    """One block of pattern position ``p_idx``: the mixer, the cross
-    attention (audio), then the MoE or the MLP, drawn in that order."""
-    dev = generator.device
+def _block_init(generator, cfg, p_idx: int, with_cross: bool) -> tuple[dict, dict]:
+    """One block of pattern position ``p_idx`` and its axes: the mixer, the
+    cross attention (audio), then the MoE or the MLP, drawn in that
+    order."""
+    dev = init_device(generator)
     kind = cfg.layer_kind(p_idx)
-    params = {"norm1": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev)}
+    params, specs = {}, {}
+    params["norm1"], specs["norm1"] = norm_init(cfg.d_model, cfg.dtype, dev)
     if kind == "mamba":
-        params["mamba"] = ssm_mod.mamba_init(generator, cfg)
+        params["mamba"], specs["mamba"] = ssm_mod.mamba_init(generator, cfg)
     else:
-        params["attn"] = attn.attn_init(generator, cfg, kind)
+        params["attn"], specs["attn"] = attn.attn_init(generator, cfg, kind)
     if with_cross:
-        params["norm_x"] = torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev)
-        params["cross"] = attn.attn_init(generator, cfg, "cross")
+        params["norm_x"], specs["norm_x"] = norm_init(cfg.d_model, cfg.dtype, dev)
+        params["cross"], specs["cross"] = attn.attn_init(generator, cfg, "cross")
     if cfg.d_ff > 0:
-        params["norm2"] = torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev)
+        params["norm2"], specs["norm2"] = norm_init(cfg.d_model, cfg.dtype, dev)
         if cfg.is_moe_layer(p_idx):
-            params["moe"] = moe_mod.moe_init(generator, cfg)
+            params["moe"], specs["moe"] = moe_mod.moe_init(generator, cfg)
         else:
-            params["mlp"] = mlp_init(generator, cfg)
-    return params
+            params["mlp"], specs["mlp"] = mlp_init(generator, cfg)
+    return params, specs
 
 
-def _stacked(draw, n: int) -> dict:
-    """``n`` draws of ``draw()`` (a tree), stacked on a leading axis: each
-    stacked leaf is allocated once and filled draw by draw, so only one
-    draw's tree lives beside the stack.  The values are ``torch.stack``'s."""
-    first = draw()
+def _stacked(draw, n: int) -> tuple[dict, dict]:
+    """``n`` draws of ``draw()`` (a tree and its axes), stacked on a leading
+    ``layers`` axis: each stacked leaf is allocated once and filled draw by
+    draw, so only one draw's tree lives beside the stack.  The values are
+    ``torch.stack``'s; the axes gain ``"layers"`` in front."""
+    first, specs = draw()
     out = tree_map(lambda v: v.new_empty((n, *v.shape)), first)
     tree_map(lambda o, v: o[0].copy_(v), out, first)
     del first
     for r in range(1, n):
-        tree_map(lambda o, v: o[r].copy_(v), out, draw())
-    return out
+        tree_map(lambda o, v: o[r].copy_(v), out, draw()[0])
+    return out, tree_map(lambda ax: ("layers", *ax), specs)
 
 
-def _stacked_blocks_init(generator: torch.Generator, cfg, with_cross: bool = False) -> list:
+def _stacked_blocks_init(generator, cfg, with_cross: bool = False) -> tuple[list, list]:
     """One dict a pattern position, its leaves stacked over the R repeats
-    (leading ``layers`` axis); drawn position by position, repeat by
-    repeat."""
-    return [_stacked(lambda: _block_init(generator, cfg, p, with_cross), cfg.repeats)
-            for p in range(len(cfg.pattern))]
+    (leading ``layers`` axis), and their axes; drawn position by position,
+    repeat by repeat."""
+    stacks = [_stacked(lambda: _block_init(generator, cfg, p, with_cross), cfg.repeats)
+              for p in range(len(cfg.pattern))]
+    return [b for b, _ in stacks], [s for _, s in stacks]
 
 
-def _enc_block_init(generator: torch.Generator, cfg) -> dict:
-    dev = generator.device
-    return {
-        "norm1": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev),
-        "norm2": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev),
-        "attn": attn.attn_init(generator, cfg, "bidir"),
-        "mlp": mlp_init(generator, cfg),
-    }
+def _enc_block_init(generator, cfg) -> tuple[dict, dict]:
+    dev = init_device(generator)
+    p, s = {}, {}
+    p["norm1"], s["norm1"] = norm_init(cfg.d_model, cfg.dtype, dev)
+    p["norm2"], s["norm2"] = norm_init(cfg.d_model, cfg.dtype, dev)
+    p["attn"], s["attn"] = attn.attn_init(generator, cfg, "bidir")
+    p["mlp"], s["mlp"] = mlp_init(generator, cfg)
+    return p, s
+
+
+def _init_lm(cfg, generator) -> tuple[dict, dict]:
+    """`init_lm_params`' tree and the axes of its leaves; with
+    ``generator=None``, meta tensors (no draw, no allocation)."""
+    dev = init_device(generator)
+    params, specs = {}, {}
+    params["embed"], specs["embed"] = embed_init(generator, cfg.vocab_size, cfg.d_model, cfg.dtype)
+    # audio decoder blocks carry cross attention
+    params["blocks"], specs["blocks"] = _stacked_blocks_init(generator, cfg, with_cross=cfg.arch_type == "audio")
+    params["final_norm"], specs["final_norm"] = norm_init(cfg.d_model, cfg.dtype, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"], specs["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, "embed", "vocab",
+                                                         cfg.dtype)
+    if cfg.enc_layers > 0:
+        blocks, bspecs = _stacked(lambda: _enc_block_init(generator, cfg), cfg.enc_layers)
+        final, fspec = norm_init(cfg.d_model, cfg.dtype, dev)
+        params["encoder"], specs["encoder"] = {"blocks": blocks, "final_norm": final}, \
+            {"blocks": bspecs, "final_norm": fspec}
+    return params, specs
 
 
 def init_lm_params(cfg, generator: torch.Generator, device=None) -> dict:
@@ -141,25 +170,19 @@ def init_lm_params(cfg, generator: torch.Generator, device=None) -> dict:
     {"blocks", "final_norm"}`` with an encoder, its blocks' leaves stacked
     over ``enc_layers``), drawn from ``generator`` (on ``device``; by default
     the generator's): the embedding, the blocks, the head, then the
-    encoder."""
+    encoder.  `abstract_lm_params` gives their shapes and axes."""
     check_remat(cfg)
     if device is not None and torch.device(device) != generator.device:
         raise ValueError(f"the generator lies on {generator.device}, the parameters are asked on {device}")
-    dev = generator.device
-    params = {
-        "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, cfg.dtype),
-        # audio decoder blocks carry cross attention
-        "blocks": _stacked_blocks_init(generator, cfg, with_cross=cfg.arch_type == "audio"),
-        "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, cfg.dtype)
-    if cfg.enc_layers > 0:
-        params["encoder"] = {
-            "blocks": _stacked(lambda: _enc_block_init(generator, cfg), cfg.enc_layers),
-            "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev),
-        }
-    return params
+    return _init_lm(cfg, generator)[0]
+
+
+def abstract_lm_params(cfg) -> tuple[dict, dict]:
+    """(the parameter tree as ``meta`` tensors, the tree of their logical
+    axes): `init_lm_params`' shapes and dtypes, with no draw and no
+    allocation; the reference's ``jax.eval_shape`` of its init."""
+    check_remat(cfg)
+    return _init_lm(cfg, None)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +240,7 @@ def _repeat(x: torch.Tensor, aux: torch.Tensor, blocks: list, cfg, positions: to
     ``aux``."""
     for p_idx, p in enumerate(blocks):
         x, a = _apply_block(p, cfg, p_idx, x, positions, memory)
+        x = shard_activation(x)
         aux = aux + a
     return x, aux
 
@@ -233,8 +257,12 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """The input embeddings of ``tokens`` (m, ...): each node's rows, in the
-    model's dtype, times sqrt(d_model) with ``cfg.scale_embed``."""
-    x = embed_tokens(params["embed"], tokens).to(cfg.dtype)
+    model's dtype (through `shard_activation`), times sqrt(d_model) with
+    ``cfg.scale_embed``.  A DTensor table sharded over the vocabulary is
+    gathered first: DTensor's lookup of a vocabulary shard has a masked
+    partial gradient, which it cannot add to the plain partial gradient
+    arriving from the layers."""
+    x = shard_activation(embed_tokens(gathered_on(params["embed"], 1), tokens).to(cfg.dtype))
     if cfg.scale_embed:
         x = x * torch.sqrt(torch.full((), float(cfg.d_model), dtype=torch.float32, device=x.device)).to(cfg.dtype)
     return x
@@ -269,7 +297,7 @@ def forward_hidden(params: dict, cfg, tokens: torch.Tensor, memory=None) -> tupl
     for r in range(cfg.repeats):
         blocks = [tree_map(lambda v: v[:, r], b) for b in params["blocks"]]
         if remat:
-            x, aux = checkpoint(_repeat, x, aux, blocks, cfg, positions, memory)
+            x, aux = checkpoint(_repeat, x, aux, blocks, cfg, positions, memory, policy=cfg.remat_policy)
         else:
             x, aux = _repeat(x, aux, blocks, cfg, positions, memory)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -289,7 +317,7 @@ def encoder_forward(params: dict, cfg, enc_embeds: torch.Tensor) -> torch.Tensor
     (m, B, S_enc, D) -> (m, B, S_enc, D); each block recomputed in the
     backward pass when ``cfg.remat``, as the reference checkpoints its scan
     body."""
-    x = enc_embeds.to(cfg.dtype)
+    x = shard_activation(enc_embeds.to(cfg.dtype))
     positions = _positions(x.shape[1], x.shape[2], x.device)
     enc = params["encoder"]
     for layer in range(cfg.enc_layers):
@@ -398,6 +426,7 @@ def decode_step(params: dict, cfg, token: torch.Tensor, caches: list, pos: int, 
             blk = tree_map(lambda v: v[:, r], stacked)
             cache = cache_on_node({k: v[r] for k, v in caches[p_idx].items()})
             x, _, cache = _block(blk, cfg, x, _decode_mixer(blk, cfg, p_idx, cache, pos, mem), cross)
+            x = shard_activation(x)
             new[p_idx].append(cache_off_node(cache))
     x = rms_norm(x, p1["final_norm"], cfg.norm_eps)
     return head_logits(p1, cfg, x[:, :, 0])[0], [stack_repeats(c) for c in new]

@@ -155,9 +155,11 @@ def _pack_tree(tree: Tree, block: int, kpad: int) -> tuple[Tree, Tree]:
     ``(vals, idx)`` with leaves (m, nb, kpad): each leaf's blocks of every
     rank in ONE pack launch over (m * nb, block) rows, blocks cut per rank.
 
-    The pack keeps at most ``kpad`` survivors a block and would drop the
-    rest.  Block top-k's threshold keeps ties, so a block can hold more
-    than k; this raises (naming the block's count) rather than drop one."""
+    A block keeps its first ``kpad`` survivors in lane order and drops the
+    rest, as the reference's pack does: block top-k's threshold keeps ties,
+    so a block can hold more than k (bf16 residuals do), and the records,
+    the wire bytes and every receiver's (and the sender's own) reference
+    are then those of the kept survivors."""
     vs, ix = [], []
     for leaf in tree_leaves(tree):
         m = leaf.shape[0]
@@ -165,13 +167,6 @@ def _pack_tree(tree: Tree, block: int, kpad: int) -> tuple[Tree, Tree]:
         d = flat.shape[1]
         nb = -(-d // block)
         tiles = F.pad(flat, (0, nb * block - d)).reshape(m * nb, block)
-        most = int(torch.count_nonzero(tiles, dim=1).max()) if tiles.numel() else 0
-        if most > kpad:
-            raise ValueError(
-                f"a block holds {most} survivors but the packed record form "
-                f"carries at most kpad = {kpad}: the fused exchange would drop "
-                "values (run the dense exchange, or a smaller ratio)"
-            )
         vals, idx = pack_sparse_blocks(tiles, k=kpad, block=block)
         vs.append(vals.reshape(m, nb, kpad))
         ix.append(idx.reshape(m, nb, kpad))
@@ -187,9 +182,10 @@ def _unpack_leaf(v: torch.Tensor, i: torch.Tensor, like: torch.Tensor, block: in
 def _unpack_like(vals_tree: Tree, idx_tree: Tree, like: Tree, block: int) -> Tree:
     """Inverse of `_pack_tree` against a shape/dtype template: packed leaves
     (m, nb, kpad) -> dense leaves shaped and typed like ``like``, every
-    rank's records of a leaf in ONE unpack launch.  Exact for <= kpad
-    survivors a block: the records carry the values untouched, and f32 ->
-    the leaf's dtype is exact for values that started in it."""
+    rank's records of a leaf in ONE unpack launch.  It gives back the
+    kept survivors (all of them where a block held at most kpad) exactly:
+    the records carry the values untouched, and f32 -> the leaf's dtype is
+    exact for values that started in it."""
     return tree_map(lambda v, i, lk: _unpack_leaf(v, i, lk, block), vals_tree, idx_tree, like)
 
 
@@ -292,7 +288,9 @@ def _device_inner_loop(
     every receiver (and the sender's own reference update) applies the
     unpacked form (`_unpack_onto`: one pass adds it to the copy or
     reference), bit-exact with the dense path for <= kpad survivors a
-    block, and the payload stacks are the packed ``(vals, idx)`` pairs."""
+    block (past kpad a block's last survivors are dropped, as the
+    reference drops them), and the payload stacks are the packed ``(vals,
+    idx)`` pairs."""
     copies_d = gossip.init(state.d_hat)
     copies_s = gossip.init(state.s_hat)
 

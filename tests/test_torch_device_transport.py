@@ -17,6 +17,8 @@ device), as tests/test_transport.py runs it:
   p = 30, ring, wan, top-k 0.3): the port's sim and device ``wire_bytes``
   equal the reference's live figures (the committed 147,456 and 147,696
   came from jax 0.4.37);
+* a fused run whose blocks hold more than kpad survivors: the port drops
+  the survivors past kpad as the reference does, every byte count equal;
 * ``verify=False`` and ``axis=``, which both packages take: the meters skip
   the decode check, and the bytes and the state are ``verify=True``'s
   and the reference's unverified run's;
@@ -50,6 +52,7 @@ from repro_torch.core import selection
 from repro_torch.core.gossip import mix_delta_shard
 from repro_torch.core import topology as ptopo
 from repro_torch.core.c2dfb import C2DFBConfig, c2dfb_round, run
+from repro_torch.core import types as ptypes
 from repro_torch.core.convert import from_numpy, to_numpy
 from repro_torch.data import bilevel_tasks as ptasks
 from repro_torch.net import make_fabric
@@ -65,6 +68,12 @@ CFGS = {
 }
 RUNS = [(topo, cfg, fused) for topo in ("ring", "star") for cfg, fused in (("topk", False), ("block", False), ("block", True))]
 UNVERIFIED = [("ring", "topk", False), ("ring", "block", True)]
+# a fused run whose blocks hold more than kpad survivors: y0 = 0 and every
+# node's documents of one class (h = 1), so each node's first gradient of
+# y is equal across the classes it has no documents of, and the kernel's
+# threshold keeps those ties past k = kpad = 128 of a 256-block
+TIE = dict(task=dict(m=M, n=80, p=32, c=8, h=1.0, seed=0), T=1,
+           cfg=dict(K=2, compressor="kernel_topk", comp_ratio=0.5, comp_block=256, gamma_in=0.3, eta_in=0.3))
 GATE_TASK = dict(m=M, n=200, p=30, c=5, h=0.8, seed=0)
 GATE_CFG = dict(lam=10.0, eta_out=0.3, gamma_out=0.5, eta_in=0.3, gamma_in=0.3, K=4, compressor="topk", comp_ratio=0.3)
 
@@ -127,6 +136,22 @@ for name in ("sim", "device"):
     _, mets = run(g.problem, ring(4), C2DFBConfig(**spec["gate_cfg"]), g.x0, g.y0, T=3, key=key, transport=tr)
     gate[name] = [int(v) for v in mets["wire_bytes"]]
 out["gate"] = gate
+tie = spec["tie"]
+tb = coefficient_tuning_task(**tie["task"])
+sink = MemorySink()
+st, mets = run_c2dfb_transport(tb.problem, make_topology("ring", tie["task"]["m"]), C2DFBConfig(**tie["cfg"]), tb.x0,
+                               np.zeros_like(tb.y0), tie["T"], key, DeviceTransport(fused=True), obs=sink,
+                               return_payloads=True)
+out["tie"] = {
+    "x0": np.asarray(tb.x0).tolist(),
+    "state": {f: np.asarray(v).tolist() for f, v in
+              [("x", st.x), ("s_x", st.s_x), ("y", st.inner_y.d), ("y_hat", st.inner_y.d_hat),
+               ("z", st.inner_z.d), ("z_s_hat", st.inner_z.s_hat)]},
+    "wire_bytes": [int(v) for v in mets["wire_bytes"]],
+    "measured_bytes": [int(v) for v in mets["measured_bytes"]],
+    "node_bytes": [r["node_bytes"] for r in sink.rows(kind="node")],
+    "phase_node_bytes": [{k: list(v) for k, v in pl["node_bytes"].items()} for pl in mets["payloads"]],
+}
 print(json.dumps(out))
 """
 
@@ -138,7 +163,8 @@ def reference():
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(os.path.dirname(__file__), "..", "src")] + env.get("PYTHONPATH", "").split(os.pathsep)
     )
-    spec = dict(task=TASK, cfgs=CFGS, runs=RUNS, T=T, gate_task=GATE_TASK, gate_cfg=GATE_CFG, unverified=UNVERIFIED)
+    spec = dict(task=TASK, cfgs=CFGS, runs=RUNS, T=T, gate_task=GATE_TASK, gate_cfg=GATE_CFG, unverified=UNVERIFIED,
+                tie=TIE)
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT, json.dumps(spec)], capture_output=True, text=True, env=env, timeout=300,
     )
@@ -245,6 +271,41 @@ def test_unverified_meters_give_the_verified_bytes_and_state(reference, port, to
     assert got == want["phase_node_bytes"]
     assert [int(v) for v in mets["wire_bytes"]] == want["wire_bytes"] == [int(v) for v in vmets["wire_bytes"]]
     np.testing.assert_allclose(to_numpy(st.x), np.asarray(want["x"]), rtol=RTOL, atol=ATOL)
+
+
+def test_fused_run_past_kpad_equals_the_reference(reference, monkeypatch):
+    """The fused exchange drops a block's survivors past kpad as the
+    reference's does: this run packs blocks of more than kpad survivors
+    (counted here, at the pack), and every node's executed bytes,
+    ``wire_bytes`` and ``measured_bytes`` equal the reference's, its state
+    within rtol 1e-4 / atol 1e-6."""
+    from repro_torch.transport import device as pdevice
+
+    most, pack = [], pdevice._pack_tree
+
+    def counting_pack(tree, block, kpad):
+        for leaf in ptypes.tree_leaves(tree):
+            flat = leaf.reshape(leaf.shape[0], -1)
+            tiles = torch.nn.functional.pad(flat, (0, -flat.shape[1] % block)).reshape(-1, block)
+            most.append(int(torch.count_nonzero(tiles, dim=1).max()))
+        return pack(tree, block, kpad)
+
+    monkeypatch.setattr(pdevice, "_pack_tree", counting_pack)
+    want = reference["tie"]
+    b = ptasks.coefficient_tuning_task(**TIE["task"], device="cpu")
+    b = dataclasses.replace(b, x0=from_numpy(np.asarray(want["x0"], np.float32)), y0=torch.zeros_like(b.y0))
+    sink = MemorySink()
+    st, mets = run_c2dfb_transport(b.problem, ptopo.make_topology("ring", M), C2DFBConfig(**TIE["cfg"]), b.x0, b.y0,
+                                   TIE["T"], None, DeviceTransport(fused=True), device="cpu", obs=sink,
+                                   return_payloads=True)
+    assert max(most) > 128, most
+    assert [int(v) for v in mets["wire_bytes"]] == want["wire_bytes"]
+    assert [int(v) for v in mets["measured_bytes"]] == want["measured_bytes"]
+    assert [r["node_bytes"] for r in sink.rows(kind="node")] == want["node_bytes"]
+    assert [{k: list(v) for k, v in pl["node_bytes"].items()} for pl in mets["payloads"]] == want["phase_node_bytes"]
+    got = dict(x=st.x, s_x=st.s_x, y=st.inner_y.d, y_hat=st.inner_y.d_hat, z=st.inner_z.d, z_s_hat=st.inner_z.s_hat)
+    for f, v in got.items():
+        np.testing.assert_allclose(to_numpy(v), np.asarray(want["state"][f]), rtol=RTOL, atol=ATOL, err_msg=f)
 
 
 # the fused round against run()'s round on run()'s own states: a wider task

@@ -253,8 +253,11 @@ def test_stacked_init_equals_stacking_the_repeats(name, monkeypatch):
     order (the blocks' and the encoder's)."""
     cfg = pconfigs.get_config(name, smoke=True)
     new = _port_params(cfg, seed=3)
-    monkeypatch.setattr(PT, "_stacked", lambda draw, n: tree_map(lambda *vs: torch.stack(vs),
-                                                                 *[draw() for _ in range(n)]))
+    def stacking(draw, n):  # every repeat's (tree, axes) drawn, then torch.stack
+        draws = [draw() for _ in range(n)]
+        return tree_map(lambda *vs: torch.stack(vs), *[t for t, _ in draws]), draws[0][1]
+
+    monkeypatch.setattr(PT, "_stacked", stacking)
     old = _port_params(cfg, seed=3)
     for a, b in zip(tree_leaves(new), tree_leaves(old)):
         assert a.dtype == b.dtype and a.shape == b.shape

@@ -7,8 +7,9 @@
   through a transport exactly as through its fabric, and as the reference;
 * the rank-level gossip engines and `make_sharded_inner_loop` against the
   reference's dense and sharded semantics;
-* `_pack_tree` / `_unpack_like` exact, their records the reference's, and
-  a block of more than kpad survivors raises;
+* `_pack_tree` / `_unpack_like` exact, their records the reference's; a
+  block of more than kpad survivors keeps its first kpad in lane order in
+  both packages (f32 and bf16);
 * `DeviceTransport` on ring (neighbour shifts) and star (all-gather),
   dense and fused: the trajectory within rtol 1e-4 / atol 1e-6 of the
   reference's sequential run, ``measured_bytes`` equal, every executed
@@ -516,19 +517,56 @@ def test_fused_push_and_apply_equal_the_dense_exchange(name, dtype):
     assert _build.launch_counts()["unpack_sparse_blocks"] == 0  # CPU tensors: the plain versions
 
 
-def test_pack_tree_raises_rather_than_drop():
-    """A block holding more than kpad survivors (the threshold's ties) makes
-    the pack raise; it never drops a value."""
+def _reference_pack(q: np.ndarray, block: int, kpad: int):
+    """The reference's `_pack_tree` rank by rank (its leaves are one rank's,
+    (1, *shape)), stacked over the ranks."""
+    from repro.transport.device import _pack_tree as jpack
+
+    packs = [jpack({"w": jnp.asarray(q[r:r + 1])}, block, kpad) for r in range(q.shape[0])]
+    return (np.concatenate([np.asarray(v["w"]) for v, _ in packs]),
+            np.concatenate([np.asarray(i["w"]) for _, i in packs]))
+
+
+def _over_full_residuals(dtype):
+    """Residuals whose blocks hold more than kpad = 128 survivors: a
+    384-way tie that block top-k keeps whole (256 survivors in block 0),
+    and a rank of a few large values among many small ones."""
+    tie = PC.KernelBlockTopK(ratio=0.5, block=256).compress_nodes(torch.ones((1, 384), dtype=dtype))
+    rng = np.random.default_rng(0)
+    mixed = torch.from_numpy(np.where(rng.random(512) < 0.7, 1e-3, 1.0) * rng.choice([-1.0, 1.0], 512))
+    mixed = PC.KernelBlockTopK(ratio=0.5, block=256).compress_nodes(mixed.to(dtype)[None])
+    return torch.cat([tie, mixed[:, :384]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pack_tree_drops_past_kpad_as_the_reference(dtype):
+    """A block of more than kpad survivors keeps its first kpad in lane
+    order, in both packages: equal records, and the unpacked residual is
+    the kept survivors."""
+    q = _over_full_residuals(dtype)
+    blocks = torch.nn.functional.pad(q, (0, 128)).reshape(2, 2, 256)  # (rank, block, lane)
+    counts = torch.count_nonzero(blocks, dim=2)
+    assert int(counts[0, 0]) == 256 and int(counts[1].max()) > 128
+    vals, idx = _pack_tree({"w": q}, 256, 128)
+    jv, ji = _reference_pack(q.to(torch.float32).numpy(), 256, 128)
+    np.testing.assert_array_equal(vals["w"].reshape(jv.shape).numpy(), jv)
+    np.testing.assert_array_equal(idx["w"].reshape(ji.shape).numpy(), ji)
+    got = _unpack_like(vals, idx, {"w": q}, 256)["w"]
+    assert got.dtype == dtype
+    rank = torch.cumsum((blocks != 0).to(torch.int64), dim=2) - 1
+    kept = torch.where(rank < 128, blocks, torch.zeros((), dtype=dtype)).reshape(2, -1)[:, :384]
+    assert torch.equal(got, kept)
+
+
+def test_pack_tree_keeps_every_survivor_up_to_kpad():
     q = torch.zeros((2, 256))
     q[1, 128:] = 1.0  # rank 1's second block: exactly kpad = 128 survivors
     q[0, :129] = 2.0  # rank 0: 128 in its first block, 1 in its second
     vals, idx = _pack_tree({"w": q}, 128, 128)
     assert torch.equal(_unpack_like(vals, idx, {"w": q}, 128)["w"], q)
-    tie = torch.ones((1, 384))  # 384 equal magnitudes: block top-k keeps them all
-    kept = PC.KernelBlockTopK(ratio=0.5, block=256).compress_nodes(tie)
-    assert int(torch.count_nonzero(kept[0, :256])) == 256 > 128
-    with pytest.raises(ValueError, match="holds 256 survivors but .* kpad = 128"):
-        _pack_tree({"w": kept}, 256, 128)
+    jv, ji = _reference_pack(q.numpy(), 128, 128)
+    np.testing.assert_array_equal(vals["w"].reshape(jv.shape).numpy(), jv)
+    np.testing.assert_array_equal(idx["w"].reshape(ji.shape).numpy(), ji)
 
 
 def test_packed_records_match_the_reference_chunked_encoding():
