@@ -3657,8 +3657,12 @@ PLAN_CASES = [("phi3-mini-3.8b", "train_4k", v) for v in ("baseline", "remat_dot
     ("mamba2-2.7b", "long_500k", "baseline"),
     ("seamless-m4t-medium", "prefill_32k", "baseline"),
     ("llama-3.2-vision-11b", "prefill_32k", "baseline"),
+    ("qwen2-7b", "train_4k", "baseline"),  # 28 heads on 16: attention split by queries
 ]
-PLAN_REAL_LAYERS = 2  # (b): phi3-mini train_4k, rank 0 of 16 x 16
+PLAN_REAL_LAYERS = 2  # (b): train_4k, rank 0 of 16 x 16
+# (b)'s models: gemma2-27b at 2 layers is one repeat, which before the vocabulary-parallel cross-entropy and
+# embedding its dry run said took 164 GB of temp a device
+PLAN_REAL_ARCHS = ["phi3-mini-3.8b", "gemma2-27b"]
 # (b): the allocator's peak over the dry run's live-storage peak.  The dry run counts every storage the step's
 # operators make, each from its operator until it is freed, so the card's peak is the same storages plus the
 # allocator's 512-byte rounding and cuBLAS's workspace (tens of MB): within 5% below and 10% above.  PERF.md
@@ -3721,10 +3725,10 @@ def plan_dryrun(dev: str, smi: str) -> list:
     return records
 
 
-def plan_real(dev: str) -> dict:
-    """(b): phi3-mini-3.8b train_4k at `PLAN_REAL_LAYERS` layers on the 16 x
-    16 mesh, rank 0: the dry run's per-device estimate on fake shards, then
-    the same step on real local shards on the card (zeros; the fake process
+def plan_real(dev: str, arch: str) -> dict:
+    """(b): ``arch``'s train_4k at `PLAN_REAL_LAYERS` layers on the 16 x 16
+    mesh, rank 0: the dry run's per-device estimate on fake shards, then the
+    same step on real local shards on the card (zeros; the fake process
     group's collectives move nothing, their integer outputs zeroed); the
     allocator's peak against the estimate's peak, within `PLAN_PEAK_BOUND`."""
     from repro_torch.launch import dryrun as DR
@@ -3733,7 +3737,7 @@ def plan_real(dev: str) -> dict:
     mesh = make_production_mesh(multi_pod=False, device=dev)
     DR.install_activation_constraint(mesh)
     try:
-        case = DR.build_case("phi3-mini-3.8b", "train_4k", mesh, layers=PLAN_REAL_LAYERS)
+        case = DR.build_case(arch, "train_4k", mesh, layers=PLAN_REAL_LAYERS)
         make, mode = DR.fake_locals(dev)
         with mode, DR.host_index_math():
             est = DR.run_case(case, dev, make)
@@ -3749,7 +3753,7 @@ def plan_real(dev: str) -> dict:
     finally:
         DR.uninstall_activation_constraint()
     ratio = peak / est["peak_size_in_bytes"]
-    print(f"[plan] (b) phi3-mini-3.8b train_4k, {PLAN_REAL_LAYERS} layers, rank 0 of 16 x 16: the dry run's "
+    print(f"[plan] (b) {arch} train_4k, {PLAN_REAL_LAYERS} layers, rank 0 of 16 x 16: the dry run's "
           f"per-device peak {est['peak_size_in_bytes']} B (arguments {est['argument_size_in_bytes']} B, temp "
           f"{est['temp_size_in_bytes']} B, traced in {est['wall_s']!r} s); on the card the allocator's peak "
           f"{peak} B above the {base} B held before (ratio {ratio!r}), the live-storage count there "
@@ -3758,12 +3762,14 @@ def plan_real(dev: str) -> dict:
     ops = sorted(set(est["made_by_op"]) | set(real["made_by_op"]),
                  key=lambda o: -abs(est["made_by_op"].get(o, 0) - real["made_by_op"].get(o, 0)))
     diffs = ", ".join(f"{o} {est['made_by_op'].get(o, 0)} / {real['made_by_op'].get(o, 0)}" for o in ops[:10])
-    print(f"[plan] (b) bytes of the storages each operator made, fake against card, the largest differences: {diffs}")
+    print(f"[plan] (b) {arch}: bytes of the storages each operator made, fake against card, the largest "
+          f"differences: {diffs}")
     check(PLAN_PEAK_BOUND[0] <= ratio <= PLAN_PEAK_BOUND[1],
-          f"[plan] the card's peak {peak} B parts from the dry run's {est['peak_size_in_bytes']} B by {ratio!r}")
+          f"[plan] {arch}: the card's peak {peak} B parts from the dry run's {est['peak_size_in_bytes']} B by "
+          f"{ratio!r}")
     check(real["flops"] == est["flops"] and real["collectives"] == est["collectives"],
-          "[plan] the real step's FLOPs or collectives differ from the dry run's")
-    return dict(estimate=est["peak_size_in_bytes"], peak=peak, ratio=ratio)
+          f"[plan] {arch}: the real step's FLOPs or collectives differ from the dry run's")
+    return dict(estimate=est["peak_size_in_bytes"], peak=peak, ratio=ratio, wall_s=real["wall_s"])
 
 
 def plan_host_mesh(dev: str) -> None:
@@ -3826,14 +3832,19 @@ def phase_plan(dev: str, smi: str) -> dict:
     """Phase 15, launch planning (A10d): (a) the dry run in process through
     ``dryrun.main(argv)`` at full width on both production meshes (fake
     ranks, fake shards on the card); (b) rank 0 of a 16 x 16 train step run
-    for real, its peak against the dry run's; (c) the host mesh on this
-    card, a smoke train step through it against the host."""
+    for real (phi3-mini and gemma2-27b, `PLAN_REAL_ARCHS`), each peak
+    against the dry run's; (c) the host mesh on this card, a smoke train
+    step through it against the host."""
     from repro_torch.launch.mesh import release
 
     t0 = time.perf_counter()
     try:
         records = plan_dryrun(dev, smi)
-        real = plan_real(dev)
+        real = {}
+        for arch in PLAN_REAL_ARCHS:
+            real[arch] = plan_real(dev, arch)
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         release()
     plan_host_mesh(dev)

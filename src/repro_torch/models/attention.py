@@ -24,6 +24,13 @@ as the reference's ``jax.checkpoint`` does.  Decode reads a KV cache
 (m, B, S_max, KV, hd); a sliding-window cache is a ring buffer of the
 window's size, RoPE applied at insertion with absolute positions, each
 slot's absolute position kept in ``slot_pos``.
+
+On DTensors (the dry run's sharded step) train and prefill attention run
+on each device's shards after the projections (`_attn_sharded`): split
+by heads where the model axis divides them, else by queries, so no score,
+mask or repeated key exists beyond a device's share; decode writes the
+new key and value into a cache sharded on its slots by an elementwise
+``where`` (`_write_slot`).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers import apply_rope, bias_init, dense_init, init_device, linear, softcap
-from repro_torch.models.sharded import einsum, sharded_evenly, split_dim
+from repro_torch.models.sharded import einsum, is_dtensor, shard_index, split_dim
 from repro_torch.models.remat import checkpoint
 
 NEG_INF = -2.0e38
@@ -56,10 +63,9 @@ def attn_init(generator, cfg, kind: str) -> tuple[dict, dict]:
     return p, s
 
 
-def _project_qkv(p, cfg, x, positions, memory=None, rope=True):
-    """x (m, B, S, D) -> q (m, B, S, H, hd), k and v (m, B, Sk, KV, hd)."""
-    m, B = x.shape[0], x.shape[1]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _project(p, x, memory=None):
+    """x (m, B, S, D) -> q (m, B, S, H*hd), k and v (m, B, Sk, KV*hd), the
+    heads not yet split."""
     q = linear(x, p["wq"])
     kv_src = memory if memory is not None else x
     k = linear(kv_src, p["wk"])
@@ -68,6 +74,13 @@ def _project_qkv(p, cfg, x, positions, memory=None, rope=True):
         q = q + p["bq"][:, None, None]
         k = k + p["bk"][:, None, None]
         v = v + p["bv"][:, None, None]
+    return q, k, v
+
+
+def _project_qkv(p, cfg, x, positions, memory=None, rope=True):
+    """x (m, B, S, D) -> q (m, B, S, H, hd), k and v (m, B, Sk, KV, hd)."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _project(p, x, memory)
     q, k, v = split_dim(q, -1, H, hd), split_dim(k, -1, KV, hd), split_dim(v, -1, KV, hd)
     if rope and cfg.use_rope and memory is None:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -95,23 +108,6 @@ def _gqa_out(probs, v):
     return out.reshape(out.shape[0], out.shape[1], out.shape[2], -1)
 
 
-def _kv_for_heads(q, k, v):
-    """k and v for the products with q: as they are, or, where q's heads
-    are sharded over a mesh axis that does not divide the KV heads (a
-    DTensor of the dry run: 8 KV heads on a model axis of 16), each KV head
-    repeated for its H / KV query heads, so the products group nothing
-    and q keeps its sharding.  A plain tensor is never repeated."""
-    H, KV = q.shape[3], k.shape[3]
-    if KV == H or sharded_evenly(q, 3, KV):
-        return k, v
-
-    def rep(t):
-        m, B, S, _, hd = t.shape
-        return t[:, :, :, :, None, :].expand(m, B, S, KV, H // KV, hd).reshape(m, B, S, H, hd)
-
-    return rep(k), rep(v)
-
-
 def _chunk_attn(q_c, qpos_c, k, v, kpos, cfg, kind):
     """One query chunk: scores, mask, softmax and the weighted values."""
     scores = _gqa_scores(q_c, k, cfg)  # (m, B, KV, G, qc, Sk)
@@ -124,26 +120,103 @@ def _chunk_attn(q_c, qpos_c, k, v, kpos, cfg, kind):
     return _gqa_out(probs, v)
 
 
+def _query_chunks(q, qpos, k, v, kpos, cfg, kind, q_chunk):
+    """The attention of q (m, B, Sq, H, hd) over k and v, ``q_chunk``
+    queries at a time, each chunk recomputed in the backward pass ->
+    (m, B, Sq, H*hd)."""
+    S = q.shape[2]
+    q_chunk = min(q_chunk, S)
+    assert S % q_chunk == 0, (S, q_chunk)
+    outs = []
+    for c in range(max(1, S // q_chunk)):
+        sl = slice(c * q_chunk, (c + 1) * q_chunk)
+        (out,) = checkpoint(_chunk_attn, q[:, :, sl], qpos[:, sl], k, v, kpos, cfg, kind)
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
 def attn_apply(p, cfg, x, positions, kind="full", memory=None, q_chunk=1024):
     """Training / prefill attention.  Returns (out, (k, v)); k and v feed
     caches.
 
     kind: "full" causal, "swa" causal window, "cross" (no mask, kv from
     ``memory``), "bidir" (encoder, no mask)."""
-    S = x.shape[2]
+    if is_dtensor(x):
+        return _attn_sharded(p, cfg, x, positions, kind, memory, q_chunk)
     q, k, v = _project_qkv(
         p, cfg, x, positions, memory=memory if kind == "cross" else None, rope=kind != "cross",
     )
     kpos = positions if kind != "cross" else None
-    q_chunk = min(q_chunk, S)
-    assert S % q_chunk == 0, (S, q_chunk)
-    kr, vr = _kv_for_heads(q, k, v)
-    outs = []
-    for c in range(max(1, S // q_chunk)):
-        sl = slice(c * q_chunk, (c + 1) * q_chunk)
-        (out,) = checkpoint(_chunk_attn, q[:, :, sl], positions[:, sl], kr, vr, kpos, cfg, kind)
-        outs.append(out)
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    out = _query_chunks(q, positions, k, v, kpos, cfg, kind, q_chunk)
+    return linear(out, p["wo"]), (k, v)
+
+
+def _attn_sharded(p, cfg, x, positions, kind, memory, q_chunk):
+    """`attn_apply` on DTensors (the dry run's sharded step): the
+    projections as DTensor products, then the heads' split, RoPE, the masks
+    and the chunked attention on each device's shards (``local_map``), so
+    no score, mask or repeated key exists beyond this device's share.
+
+    Over the mesh axes that do not shard the batch (the model axis), the
+    attention is split by heads where they divide (q's heads as the
+    projection shards them; k and v by KV heads where those divide too,
+    else gathered and each local query head's KV head taken on the
+    shard), and otherwise by queries (28 heads on 16: q resharded from its
+    columns to its sequence, k and v gathered; each device's chunk of
+    q_chunk / n queries holds the scores of q_chunk heads' worth; the
+    output resharded back to q's columns for ``wo``).  The
+    positions are ``positions``' shards (a DTensor sharded as the batch,
+    `repro_torch.models.sharded.batch_positions`).  Returns (out, (k, v))
+    as `attn_apply`, k and v roped, split into heads."""
+    import math
+
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    q, k, v = _project(p, x, memory if kind == "cross" else None)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mesh, S = q.device_mesh, q.shape[2]
+    if not is_dtensor(positions):
+        positions = DTensor.from_local(positions, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    batch = [isinstance(pl, Shard) and pl.dim == 1 for pl in q.placements]
+    split = [i for i in range(mesh.ndim) if not batch[i] and mesh.size(i) > 1]
+    n = math.prod(mesh.size(i) for i in split)
+    by_heads = H % n == 0 and all(q.placements[i] == Shard(3) for i in split)
+    if not by_heads and S % n:
+        split, n = [], 1  # neither divides: every device of those axes computes the whole
+    kv_split = by_heads and KV % n == 0
+    chunk = q_chunk if by_heads else math.gcd(S // n, max(1, q_chunk // n))
+    kv_index = None
+    if by_heads and not kv_split:
+        first = shard_index(mesh, split)[0] * (H // n)
+        kv_index = [h // (H // KV) for h in range(first, first + H // n)]
+    rope = kind != "cross" and cfg.use_rope
+
+    def pl(dim, part):
+        return [Shard(dim) if batch[i] else part if i in split else Replicate() for i in range(mesh.ndim)]
+
+    q_pl = pl(1, Shard(3) if by_heads else Shard(2))
+    kv_pl, kv_grad = (pl(1, Shard(3)), pl(1, Shard(3))) if kv_split else (pl(1, Replicate()), pl(1, Partial()))
+    qpos_pl, kpos_pl = pl(0, Replicate() if by_heads else Shard(1)), pl(0, Replicate())
+
+    def local(ql, kl, vl, qpos, kpos):
+        ql = ql.reshape(*ql.shape[:3], -1, hd)
+        kl, vl = kl.reshape(*kl.shape[:3], -1, hd), vl.reshape(*vl.shape[:3], -1, hd)
+        if rope:
+            ql, kl = apply_rope(ql, qpos, cfg.rope_theta), apply_rope(kl, kpos, cfg.rope_theta)
+        kr, vr = kl, vl
+        if kv_index is not None:
+            idx = torch.tensor(kv_index, device=kl.device)
+            kr, vr = kl[:, :, :, idx], vl[:, :, :, idx]
+        out = _query_chunks(ql, qpos, kr, vr, kpos if kind != "cross" else None, cfg, kind, chunk)
+        return out, kl, vl
+
+    out, k, v = local_map(local, out_placements=(q_pl, kv_pl, kv_pl),
+                          in_placements=(q_pl, kv_pl, kv_pl, qpos_pl, kpos_pl),
+                          in_grad_placements=(q_pl, kv_grad, kv_grad, qpos_pl, kpos_pl),
+                          device_mesh=mesh, redistribute_inputs=True)(q, k, v, positions, positions)
+    if split and not by_heads:  # back to q's columns: a product cannot flatten a sequence-sharded batch
+        out = out.redistribute(mesh, pl(1, Shard(3)))
     return linear(out, p["wo"]), (k, v)
 
 
@@ -175,6 +248,19 @@ def cache_specs(kind: str) -> dict:
     }
 
 
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:
+    """A copy of ``cache`` (m, B, size, KV, hd) with ``new`` (m, B, 1, KV,
+    hd) in slot ``slot``.  A DTensor cache (sharded on its slots) is
+    written elementwise, a ``where`` against the slot's index, so it stays
+    on its shards: an assignment by index gathers it."""
+    if not is_dtensor(cache):
+        out = cache.clone()
+        out[:, :, slot] = new[:, :, 0]
+        return out
+    at = torch.arange(cache.shape[2], device=new.device).reshape(1, 1, -1, 1, 1) == slot
+    return torch.where(at, new, cache)
+
+
 def attn_decode(p, cfg, x_t, cache, pos: int, kind="full", memory=None):
     """One-token decode.  x_t: (m, B, 1, D); pos: the absolute position.
     Returns (out (m, B, 1, D), new_cache); the cache given is not changed."""
@@ -189,9 +275,8 @@ def attn_decode(p, cfg, x_t, cache, pos: int, kind="full", memory=None):
     size = cache["k"].shape[2]
     # a full cache has size s_max > pos, so slot = pos; a window's ring cycles
     slot = pos % size
-    k_cache, v_cache, slot_pos = cache["k"].clone(), cache["v"].clone(), cache["slot_pos"].clone()
-    k_cache[:, :, slot] = k_new[:, :, 0]
-    v_cache[:, :, slot] = v_new[:, :, 0]
+    k_cache, v_cache, slot_pos = _write_slot(cache["k"], k_new, slot), _write_slot(cache["v"], v_new, slot), \
+        cache["slot_pos"].clone()
     slot_pos[slot] = pos
 
     scores = _gqa_scores(q, k_cache, cfg)  # (m, B, KV, G, 1, size)

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.remat import checkpoint, product
-from repro_torch.models.sharded import bmm
+from repro_torch.models.sharded import bmm, is_dtensor, vocab_parallel_nll
 
 # ---------------------------------------------------------------------------
 # sharding hooks
@@ -238,8 +238,11 @@ def _chunk_nll(h: torch.Tensor, lab: torch.Tensor, mk: torch.Tensor, lm_head: to
     h (m, B, c, D), lab / mk (m, B, c), lm_head (m, D, V)."""
     logits = linear(h, lm_head).to(torch.float32)
     logits = softcap(logits, logit_cap)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    if is_dtensor(logits):  # the dry run's sharded step: the vocabulary stays sharded
+        nll = vocab_parallel_nll(logits, lab)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
     return torch.sum(nll * mk, dim=(1, 2)), torch.sum(mk, dim=(1, 2))
 
 
@@ -252,7 +255,9 @@ def chunked_cross_entropy(
     hidden: (m, B, S, D); labels: (m, B, S) integers; lm_head: (m, D, V).
     Returns (m,).  Each chunk's logits are recomputed in the backward pass
     instead of saved (`repro_torch.models.remat.checkpoint`), as the
-    reference's ``jax.checkpoint`` does."""
+    reference's ``jax.checkpoint`` does.  On DTensors the logits stay
+    sharded on the vocabulary as ``lm_head`` is
+    (`repro_torch.models.sharded.vocab_parallel_nll`)."""
     m, B, S, D = hidden.shape
     assert S % chunk == 0, (S, chunk)
     ms = torch.ones_like(labels, dtype=torch.float32) if mask is None else mask.to(torch.float32)

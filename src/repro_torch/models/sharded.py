@@ -14,14 +14,25 @@ so a weight is gathered for a batch-sharded activation and a KV cache
 stays where it is), and the output is sharded on that letter, or a
 Partial sum where it is contracted.  `split_dim` splits a sharded
 dimension (heads, head_dim) after replicating it over a mesh axis that
-does not divide the heads, as the reference's resolve drops an axis that
-does not divide; `gathered_on` replicates a sharded dimension;
+does not divide the heads (a decode step's query: the attention of train
+and prefill splits its heads on each device's shards instead,
+`repro_torch.models.attention`); `gathered_on` replicates a sharded
+dimension; `batch_positions` gives positions sharded as the batch;
 `pad_front` pads a DTensor by concatenation and `cumsum` runs on its
 shards (DTensor's pad and its rule for the cumsum's backward fail on
 torch 2.11).
+
+The vocabulary stays sharded where the reference's ``vocab`` axis puts
+it: `vocab_parallel_nll` (the cross-entropy of logits sharded on the
+vocabulary) and `vocab_parallel_embedding` (the lookup in a table sharded
+on it) run on each device's shards and reduce across the shards with
+explicit collectives (`sum_across`, whose gradient is the identity, so
+no masked partial gradient ever meets DTensor's propagation).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -139,13 +150,149 @@ def gathered_on(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t if want == list(t.placements) else t.redistribute(t.device_mesh, want)
 
 
-def sharded_evenly(t: torch.Tensor, dim: int, n: int) -> bool:
-    """Whether ``n`` groups of ``t``'s dimension ``dim`` split evenly over
-    the mesh axes that shard it (always, for a plain tensor)."""
-    if not is_dtensor(t):
-        return True
+def shard_dims(t: torch.Tensor, dim: int) -> list:
+    """The mesh dimensions on which the DTensor ``t`` is sharded on its
+    dimension ``dim``."""
     from torch.distributed.tensor import Shard
 
     dim = dim % t.dim()
-    return all(not (isinstance(p, Shard) and p.dim == dim) or n % t.device_mesh.size(i) == 0
-               for i, p in enumerate(t.placements))
+    return [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == dim]
+
+
+def shard_index(mesh, dims: list) -> tuple[int, int]:
+    """This device's index among the shards of a dimension sharded over the
+    mesh dimensions ``dims`` (in mesh order, the first outermost), and
+    their count."""
+    index, count = 0, 1
+    for i in dims:
+        index, count = index * mesh.size(i) + mesh.get_local_rank(i), count * mesh.size(i)
+    return index, count
+
+
+def reduce_across(t: torch.Tensor, op: str, mesh, dims: list) -> torch.Tensor:
+    """``t`` (a local shard) reduced by ``op`` ("sum", "max") across the
+    devices of the mesh dimensions ``dims``, one all-reduce a dimension (of
+    more than one device)."""
+    import torch.distributed._functional_collectives as funcol
+
+    for i in (i for i in dims if mesh.size(i) > 1):
+        t = funcol.all_reduce(t, op, (mesh, i))
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+class _SumAcross(torch.autograd.Function):
+    """`reduce_across` by sum, whose gradient is the incoming one: the sum
+    is replicated, so each device's gradient is already the whole."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        return reduce_across(t, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def sum_across(t: torch.Tensor, mesh, dims: list) -> torch.Tensor:
+    return _SumAcross.apply(t, mesh, dims) if dims else t
+
+
+class _VocabNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] over a vocabulary sharded across the
+    devices of ``dims``: logits (..., V_local) f32 hold the vocabulary
+    entries [offset, offset + V_local), labels (...) the global entries.
+    The max, the sum of exponentials and the label's logit are reduced
+    across the shards; the gradient, softmax - onehot, is local."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset, mesh, dims):
+        top = reduce_across(torch.amax(logits, dim=-1), "max", mesh, dims)
+        total = reduce_across(torch.sum(torch.exp(logits - top[..., None]), dim=-1), "sum", mesh, dims)
+        lse = torch.log(total) + top
+        local = labels - offset
+        inside = (local >= 0) & (local < logits.shape[-1])
+        idx = torch.where(inside, local, 0)[..., None]
+        picked = torch.where(inside, torch.gather(logits, -1, idx)[..., 0], 0.0)
+        ctx.save_for_backward(logits, lse, idx, inside)
+        return lse - reduce_across(picked, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, idx, inside = ctx.saved_tensors
+        probs = torch.exp(logits - lse[..., None]) * grad[..., None]
+        hit = torch.zeros_like(probs).scatter(-1, idx, torch.where(inside, grad, 0.0)[..., None])
+        return probs - hit, None, None, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's negative log-likelihood of its label, logits (...,
+    V) f32 a DTensor (sharded on V where the head's vocabulary is; V
+    replicated works too; a Partial sum is reduced first), labels (...) an
+    integer DTensor.  On each device's shards: no (..., V) tensor is
+    gathered."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    dims = shard_dims(logits, -1)
+    index, count = shard_index(mesh, dims)
+    offset = index * (logits.shape[-1] // count)
+    pl = [Replicate() if isinstance(p, Partial) else p for p in logits.placements]
+    lab_pl = [Replicate() if i in dims else p for i, p in enumerate(pl)]
+    fn = lambda lg, lb: _VocabNLL.apply(lg, lb, offset, mesh, dims)  # noqa: E731
+    return local_map(fn, out_placements=lab_pl, in_placements=(pl, lab_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
+
+
+def vocab_parallel_embedding(table: torch.Tensor, tokens: torch.Tensor, lookup) -> torch.Tensor:
+    """``lookup(table, tokens)`` (table (m, V, D), tokens (m, ...) ->
+    (m, ..., D)) with the table and the tokens DTensors: each device looks
+    up the tokens of its vocabulary shard (the rest give zeros) and the
+    rows are summed across the vocabulary's shards.  Where the table's
+    shard has fewer rows than the device has tokens, it is gathered over
+    the mesh dimensions that shard D (FSDP) and the output has the tokens'
+    placements; else (a decode step's few tokens) the tokens are gathered
+    instead and looked up in the table's D shards, and the output is
+    sharded on D there.  Either way the output is replicated across the
+    vocabulary's shards, and the table's gradient has the table's
+    placements, a Partial sum where the table was gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    dims = shard_dims(table, 1)
+    index, count = shard_index(mesh, dims)
+    offset = index * (table.shape[1] // count)
+    local_tokens = tokens.numel() // math.prod(mesh.size(i) for i, p in enumerate(tokens.placements)
+                                               if isinstance(p, Shard))
+    cols = shard_dims(table, 2) if table.shape[1] // count > local_tokens else []
+    tok_pl = [Replicate() if i in dims or i in cols else p for i, p in enumerate(tokens.placements)]
+    tab_pl = [Shard(1) if i in dims else Shard(2) if i in cols else Replicate() for i in range(mesh.ndim)]
+    grad_pl = [t if i in dims or i in cols else Partial() if isinstance(p, Shard) else Replicate()
+               for i, (t, p) in enumerate(zip(tab_pl, tok_pl))]
+    out_pl = [Shard(tokens.dim()) if i in cols else p for i, p in enumerate(tok_pl)]
+
+    def local(tab, tok):
+        rel = tok - offset
+        inside = (rel >= 0) & (rel < tab.shape[1])
+        rows = lookup(tab, torch.where(inside, rel, 0))
+        return sum_across(torch.where(inside[..., None], rows, 0.0), mesh, dims)
+
+    return local_map(local, out_placements=out_pl, in_placements=(tab_pl, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh, redistribute_inputs=True)(table, tokens)
+
+
+def batch_positions(like: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, S) int32 positions, ``arange(S)`` a row, as a DTensor sharded as
+    the DTensor ``like`` (m, B, ...) shards its batch (dimension 1), so a
+    mask built from them has each device's batch rows only."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = like.device_mesh
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == 1 else Replicate() for p in like.placements]
+    B = like.shape[1]
+    local_b = B // math.prod(mesh.size(i) for i, p in enumerate(pl) if isinstance(p, Shard))
+    local = torch.arange(S, dtype=torch.int32, device=like.to_local().device).expand(local_b, S).contiguous()
+    return DTensor.from_local(local, mesh, pl, run_check=False)

@@ -114,7 +114,7 @@ def make_prefill_step(cfg, max_len=None):
         p1 = T.one_node(params)
         memory = _memory_from_batch(p1, cfg, batch)
         x = T.embed(p1, cfg, tokens.unsqueeze(0))
-        positions = T._positions(B, S, tokens.device)
+        positions = T._positions(B, S, tokens.device, like=x)
         cross = T._cross(cfg, positions, memory)
         caches = [[] for _ in cfg.pattern]
         for r in range(cfg.repeats):

@@ -72,7 +72,7 @@ from repro_torch.models.layers import (
     softcap,
 )
 from repro_torch.models.remat import checkpoint
-from repro_torch.models.sharded import gathered_on
+from repro_torch.models.sharded import batch_positions, is_dtensor, vocab_parallel_embedding
 
 
 def check_remat(cfg) -> None:
@@ -249,7 +249,11 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Each node's rows of its own table: embed (m, V, D), tokens (m, ...) ->
     (m, ..., D).  One lookup in the (m * V, D) table, whose backward on the
     card is PyTorch's sorted, segmented ``embedding_dense_backward``: no
-    atomics, so two runs give the same bits."""
+    atomics, so two runs give the same bits.  A DTensor table is looked up
+    on its vocabulary shards (`repro_torch.models.sharded.
+    vocab_parallel_embedding`)."""
+    if is_dtensor(embed):
+        return vocab_parallel_embedding(embed, tokens, embed_tokens)
     m, V = embed.shape[0], embed.shape[1]
     offsets = (torch.arange(m, device=tokens.device) * V).reshape(m, *([1] * (tokens.dim() - 1)))
     return F.embedding(tokens + offsets, embed.reshape(m * V, -1))
@@ -258,11 +262,8 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """The input embeddings of ``tokens`` (m, ...): each node's rows, in the
     model's dtype (through `shard_activation`), times sqrt(d_model) with
-    ``cfg.scale_embed``.  A DTensor table sharded over the vocabulary is
-    gathered first: DTensor's lookup of a vocabulary shard has a masked
-    partial gradient, which it cannot add to the plain partial gradient
-    arriving from the layers."""
-    x = shard_activation(embed_tokens(gathered_on(params["embed"], 1), tokens).to(cfg.dtype))
+    ``cfg.scale_embed``."""
+    x = shard_activation(embed_tokens(params["embed"], tokens).to(cfg.dtype))
     if cfg.scale_embed:
         x = x * torch.sqrt(torch.full((), float(cfg.d_model), dtype=torch.float32, device=x.device)).to(cfg.dtype)
     return x
@@ -280,7 +281,11 @@ def head_logits(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     return softcap(linear(x, lm_head(params, cfg)).to(torch.float32), cfg.logit_softcap)
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
+def _positions(B: int, S: int, device, like=None) -> torch.Tensor:
+    """(B, S) positions, ``arange(S)`` a row; for a DTensor ``like`` (m, B,
+    ...), a DTensor sharded as its batch."""
+    if is_dtensor(like):
+        return batch_positions(like, S)
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
@@ -291,7 +296,7 @@ def forward_hidden(params: dict, cfg, tokens: torch.Tensor, memory=None) -> tupl
     check_remat(cfg)
     m, B, S = tokens.shape
     x = embed(params, cfg, tokens)
-    positions = _positions(B, S, tokens.device)
+    positions = _positions(B, S, tokens.device, like=x)
     aux = torch.zeros((m,), dtype=torch.float32, device=x.device)
     remat = cfg.remat and cfg.remat_policy != "none"
     for r in range(cfg.repeats):
@@ -318,7 +323,7 @@ def encoder_forward(params: dict, cfg, enc_embeds: torch.Tensor) -> torch.Tensor
     backward pass when ``cfg.remat``, as the reference checkpoints its scan
     body."""
     x = shard_activation(enc_embeds.to(cfg.dtype))
-    positions = _positions(x.shape[1], x.shape[2], x.device)
+    positions = _positions(x.shape[1], x.shape[2], x.device, like=x)
     enc = params["encoder"]
     for layer in range(cfg.enc_layers):
         blk = tree_map(lambda v: v[:, layer], enc["blocks"])
