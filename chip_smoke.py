@@ -5,6 +5,7 @@ against its plain PyTorch version.
     python3 chip_smoke.py          # from the repository root; needs one card
     python3 chip_smoke.py --only archs   # the build, then phase 13 alone
     python3 chip_smoke.py --only steps   # the build, then phase 14 alone
+    python3 chip_smoke.py --only examples   # the build, then phase 16 alone
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -76,9 +77,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    set_sync_debug_mode("error") and its device idle share; and a compiled
    run on er(10, 0.4), card against host;
 11. the transports, at the width of phase 4 on the ring with a WAN pricing
-   fabric, T = 3: run(transport=DeviceTransport(fused=True)), every
+   fabric, T = 1: run(transport=DeviceTransport(fused=True)), every
    residual packed on the card (B2) and unpacked by every receiver (B3):
-   B1 120, B2 120, B3 360 launches, no block over kpad survivors, each
+   B1 40, B2 40, B3 120 launches, no block over kpad survivors, each
    round's wire bytes the degree sum of its node bytes, one fused round
    body profiled; the dense exchange metered in the same chunked format,
    bit for bit the fused run (state, every metric, every node's bytes on
@@ -87,7 +88,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    run()'s top-k selections imposed: every row whose own choice differs a
    near-tie, and the round equal in value to c2dfb_round with the
    exchange's mixes (shift by shift, sum w (hat_j - hat_i)); kernel_quant on a
-   torch.Generator, T = 2 (B4 80, the closed-form bytes); on m = 4, ring and
+   torch.Generator, T = 1 (B4 40, the closed-form bytes); on m = 4, ring and
    star, dense and fused, and make_sharded_inner_loop, card against host.
    B2 and B3 (its tile entry against zeros().scatter_add_, its leaf entry
    onto a base against today's three calls: the tile, the slice and the
@@ -112,7 +113,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    mixture); seamless-m4t-medium at full depth and llama-3.2-vision-11b at
    one repeat (loss and gradient through the memory, the encoder's
    gradient, the memory's reach); one full-width Mamba-2 layer over two
-   chunks and jamba-smoke, mixtral-smoke and mamba2-smoke through run(),
+   chunks and jamba-smoke, mixtral-smoke and mamba2-smoke, one round each,
    card against host;
 14. the step factories, optimizers, checkpoints and the train and serve
    CLIs (A10c), each CLI through its main(argv) in process, every run's wall
@@ -129,7 +130,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    kernel_topk (B1 bf16 2 x 4 K x 2 = 48 launches, none f32; the wire bytes
    of the host's run); and f32 phi3-, gemma2-, mamba2- and mixtral-smoke
    (and phi3-smoke in bf16) card against host: a SGD-M step, the prefill and
-   8 decode steps.
+   8 decode steps;
+15. launch planning: the dry run through dryrun.main(argv) at full width on
+   the fake 256- and 512-rank meshes, rank 0 of a 16 x 16 train step run
+   for real against the dry run's peak, and the host mesh;
+16. the nine examples' twins (examples/*_torch.py) through their
+   main(argv) in process at their own sizes (coefficient tuning and
+   hyper-representation with --fast; the LM example at its 20m preset),
+   artifacts in a temporary directory: each returns, observability's own
+   asserts hold, each twin's wall is printed, and its kernel launches are
+   counted (no kernel of this repo is on their path: every example
+   compresses with top-k, metered by the host's sparse codec, so each
+   count must be 0); wan_bilevel and transport_backends also run on the
+   host first, and the card's run prints the same integers, and the same
+   floats within the golden tolerance up to the first top-k near-tie: the
+   card's selections are compared with the host's (selection.compared),
+   every compressed residual up to the first parting must lie within the
+   golden tolerance of the host's and the parting must be a near-tie, and
+   the printed floats (all printed after the last round) are held only if
+   the runs never part (examples/_compare_torch.py).  Keeping the
+   host's selections instead does not hold: wan_bilevel's residuals drift
+   apart by rounding on the same coordinates (1e-3 after 380 of its 3,604
+   compressions) and the card's run, on selections made for another
+   trajectory, goes to NaN.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -140,11 +163,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2226,11 +2252,18 @@ def fused_on_run_states(dev, bundle, main_mets) -> None:
           f"{seen.of_allowance!r} of its allowance")
 
 
+# phase 11's depth: the dense exchange's host meter takes 50-75 s a round and
+# the quant exchange's 37-49 s, so each exchange runs one round (every check
+# is per round; launch counts scale with T)
+TRANSPORT_T = 1
+TRANSPORT_QUANT_T = 1
+
+
 def phase_transport(dev, bundle, main_mets) -> dict:
     """The transports.
 
     (a) run(transport=DeviceTransport(fused=True, link="wan")) at TASK's
-    width, kernel_topk, ring, K = 10, T = 3: every residual packed on the
+    width, kernel_topk, ring, K = 10, T = TRANSPORT_T: every residual packed on the
     card (B2, one launch a broadcast over every rank's blocks), the ring's
     two shifts moving the records, unpacked by every receiver and the sender
     (B3, 3 a broadcast): B1 4*K*T, B2 4*K*T and B3 3 * 4*K*T launches; no
@@ -2245,8 +2278,8 @@ def phase_transport(dev, bundle, main_mets) -> dict:
     norms part from run()'s (phase 4) at top-k near-ties, so the fused round is
     held to run()'s round by round on run()'s own states
     (`fused_on_run_states`).
-    Then kernel_quant on a torch.Generator, T = 2, per-leaf format: B4
-    launches 4*K*T, every round meters the closed form.
+    Then kernel_quant on a torch.Generator, T = TRANSPORT_QUANT_T, per-leaf
+    format: B4 launches 4*K*T, every round meters the closed form.
 
     (c) The small config, card against host (phase_transport_small).
 
@@ -2273,21 +2306,22 @@ def phase_transport(dev, bundle, main_mets) -> dict:
     D._pack_tree = counting
     fused_tr = DeviceTransport(fused=True, link="wan")
     try:
-        fa = _transport_run(dev, bundle, fused_tr, CFG, T)
+        fa = _transport_run(dev, bundle, fused_tr, CFG, TRANSPORT_T)
     finally:
         D._pack_tree = pack
-    _check_transport_run("[transport fused]", fa, CFG, T)
-    want = {"block_topk": 4 * K * T, "pack_sparse_blocks": 4 * K * T, "unpack_sparse_blocks": 3 * 4 * K * T}
+    _check_transport_run("[transport fused]", fa, CFG, TRANSPORT_T)
+    n = 4 * K * TRANSPORT_T
+    want = {"block_topk": n, "pack_sparse_blocks": n, "unpack_sparse_blocks": 3 * n}
     got = {k: fa["counts"][k] for k in want}
     check(got == want and fa["counts"]["quantize"] == 0, f"the fused run launched {fa['counts']}, want {want}")
-    check(len(most) == 4 * K * T and max(most) <= kpad, f"a block held {max(most)} survivors, kpad {kpad}")
+    check(len(most) == n and max(most) <= kpad, f"a block held {max(most)} survivors, kpad {kpad}")
     print(f"[transport fused] most survivors in a block over the {len(most)} packs: {max(most)} (kpad {kpad}, "
           f"k {round(CFG['comp_ratio'] * block)})")
     profile_device_round(bundle, fa["state"], fused_tr)
 
-    fb = _transport_run(dev, bundle, DeviceTransport(link="wan", chunk=1 << 16), CFG, T)
-    _check_transport_run("[transport dense]", fb, CFG, T)
-    check(fb["counts"]["block_topk"] == 4 * K * T and fb["counts"]["pack_sparse_blocks"] == 0
+    fb = _transport_run(dev, bundle, DeviceTransport(link="wan", chunk=1 << 16), CFG, TRANSPORT_T)
+    _check_transport_run("[transport dense]", fb, CFG, TRANSPORT_T)
+    check(fb["counts"]["block_topk"] == n and fb["counts"]["pack_sparse_blocks"] == 0
           and fb["counts"]["unpack_sparse_blocks"] == 0, f"the dense run launched {fb['counts']}")
     from repro_torch.async_gossip.compiled import _tensors
 
@@ -2298,17 +2332,18 @@ def phase_transport(dev, bundle, main_mets) -> dict:
             check(_same_bits(v, fb["mets"][k]), f"metric {k} differs between the fused and the dense exchange")
     check(fa["reports"] == fb["reports"], "a node's executed bytes differ between the packed records and "
           "measure_tree_bytes_chunked of the dense slice")
-    gap = np.abs(fa["mets"]["hypergrad_norm"] - main_mets["hypergrad_norm"].double().cpu().numpy())
+    gap = np.abs(fa["mets"]["hypergrad_norm"] - main_mets["hypergrad_norm"][:TRANSPORT_T].double().cpu().numpy())
     print(f"[transport] fused and dense bit-identical (state, every metric; {sum(len(r) for r in fa['reports'])} "
           f"phases x {TASK['m']} node bytes equal); free runs' hypergrad_norm gap to run(): {gap.tolist()} "
-          f"(run() {main_mets['hypergrad_norm'].tolist()}), held round by round below")
+          f"(run() {main_mets['hypergrad_norm'][:TRANSPORT_T].tolist()}), held round by round below")
     del fb
     fused_on_run_states(dev, bundle, main_mets)
 
-    fq = _transport_run(dev, bundle, DeviceTransport(link="wan"), CFG_QUANT, 2,
+    fq = _transport_run(dev, bundle, DeviceTransport(link="wan"), CFG_QUANT, TRANSPORT_QUANT_T,
                         generator=torch.Generator(device=dev).manual_seed(0))
-    _check_transport_run("[transport quant]", fq, CFG_QUANT, 2)
-    check(fq["counts"]["quantize"] == 4 * CFG_QUANT["K"] * 2, f"the kernel_quant run launched {fq['counts']}")
+    _check_transport_run("[transport quant]", fq, CFG_QUANT, TRANSPORT_QUANT_T)
+    check(fq["counts"]["quantize"] == 4 * CFG_QUANT["K"] * TRANSPORT_QUANT_T,
+          f"the kernel_quant run launched {fq['counts']}")
     check(all(int(b) == quant_round_bytes()[1] for b in fq["mets"]["measured_bytes"]),
           f"kernel_quant measured_bytes {fq['mets']['measured_bytes'].tolist()}, want {quant_round_bytes()[1]}")
     counts = dict(block_topk=fa["counts"]["block_topk"], pack_sparse_blocks=fa["counts"]["pack_sparse_blocks"],
@@ -2818,9 +2853,9 @@ def lm_fused_smoke(dev) -> dict:
     return dict(pack_sparse_blocks=cf["pack_sparse_blocks"], unpack_sparse_blocks=cf["unpack_sparse_blocks"])
 
 
-def lm_card_against_host(dev, cfg=None, steps: float = BF16_STEPS) -> None:
+def lm_card_against_host(dev, cfg=None, steps: float = BF16_STEPS, rounds: int = 2) -> None:
     """lm-test (bf16; or ``cfg``), m = 8, B = 2, S = 32, K = 2,
-    kernel_topk at 0.1 of blocks of 512, T = 2: the host steps its rounds
+    kernel_topk at 0.1 of blocks of 512, ``rounds`` rounds: the host steps its rounds
     and records its top-k selections; the card runs each round on the
     host's round-t state keeping them (a parted row must be a near-tie),
     and every field lies within the tests' bf16 bound of the host's:
@@ -2848,7 +2883,7 @@ def lm_card_against_host(dev, cfg=None, steps: float = BF16_STEPS) -> None:
         return dict(x=st.x, s_x=st.s_x, u=st.u_prev, y=st.inner_y.d, y_s=st.inner_y.s, z=st.inner_z.d,
                     z_s=st.inner_z.s)
 
-    for t in range(2):
+    for t in range(rounds):
         log = []
         with selection.recorded(log):
             want, _ = c2dfb_round(state, None, hp, ring(8), ccfg)
@@ -2867,8 +2902,8 @@ def lm_card_against_host(dev, cfg=None, steps: float = BF16_STEPS) -> None:
                 check(err <= bound, f"{cfg.name} round {t} {name}: card {err!r} off the host, bound {bound!r}")
         state = want
     counts = _build.launch_counts()
-    check(counts["block_topk_bf16"] == 2 * 2 * 4 * 2, f"{cfg.name} on the card launched {counts}")
-    print(f"[lm host] {cfg.name} ({cfg.num_layers} layers) card against host, m 8, 2 rounds on the host's states: "
+    check(counts["block_topk_bf16"] == 2 * 2 * 4 * rounds, f"{cfg.name} on the card launched {counts}")
+    print(f"[lm host] {cfg.name} ({cfg.num_layers} layers) card against host, m 8, {rounds} rounds on the host's states: "
           f"within the bf16 bound of {steps / 2.0 ** -8:g} steps (largest {worst:.3f} of it), {seen.rows} parted "
           f"rows (near-ties), launches {counts}")
 
@@ -2881,6 +2916,9 @@ SSM_LAYERS = 2
 # the tests' bf16 bound for a Mamba layer (tests/test_torch_lm_bilevel.py):
 # 16 bf16 steps of a leaf's scale
 A10B_STEPS = 4 * BF16_STEPS
+# (d)'s depth: one round of each smoke on the host's state (each round is
+# checked alike, so one keeps every bound)
+A10B_ROUNDS = 1
 
 
 def phase_archs(dev) -> dict:
@@ -2908,8 +2946,8 @@ def phase_archs(dev) -> dict:
         patches: loss and gradient; the first block's output independent of
         the memory, bit for bit); one mamba2-2.7b layer at full width, B = 1,
         S = 512 (two chunks of 256), card against host;
-    (d) jamba-smoke, mixtral-smoke and mamba2-smoke at their smoke depth
-        through run(), m = 8, card against host on the host's states with
+    (d) jamba-smoke, mixtral-smoke and mamba2-smoke at their smoke depth,
+        A10B_ROUNDS round(s) of each, m = 8, card against host on the host's states with
         its selections, within the tests' bf16 bound for these layers
         (A10B_STEPS of a leaf's scale).
 
@@ -2987,7 +3025,7 @@ def phase_archs(dev) -> dict:
     print(f"[archs] (c) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for name in ("jamba-1.5-large-398b", "mixtral-8x7b", "mamba2-2.7b"):
-        lm_card_against_host(dev, get_config(name, smoke=True), steps=A10B_STEPS)
+        lm_card_against_host(dev, get_config(name, smoke=True), steps=A10B_STEPS, rounds=A10B_ROUNDS)
     print(f"[archs] (d) in {time.perf_counter() - t0:.1f} s; phase 13 in {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -3852,6 +3890,93 @@ def phase_plan(dev: str, smi: str) -> dict:
     return dict(records=len(records), real=real)
 
 
+# phase 16: the nine examples' twins, each through its main(argv) at its own sizes ("{out}": a temporary directory)
+EXAMPLES = ROOT / "examples"
+EXAMPLE_ARGS = {
+    "quickstart": [],
+    "coefficient_tuning": ["--fast"],
+    "hyper_representation": ["--fast"],
+    "wan_bilevel": ["--out", "{out}"],
+    "async_bilevel": ["--out", "{out}"],
+    "observability": ["--out", "{out}"],
+    "transport_backends": [],
+    "serve_batch": [],
+    "decentralized_llm_bilevel": [],  # the 20m preset, its 30 steps
+}
+# the twins whose printed lines are held card against host, and how: the
+# device transport's host wall left out, megabytes of exact bytes equal
+EXAMPLES_ON_HOST = ("wan_bilevel", "transport_backends")
+EXAMPLE_MACHINE = [r"wall_s=([\d.]+)"]
+EXAMPLE_EXACT = [r"[\d.]+ MB"]
+
+
+def _load_example(name: str):
+    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_run(name: str, argv: list) -> tuple[str, float]:
+    """The twin's ``main(argv)`` in process: what it printed, and its wall
+    seconds to a synchronized card."""
+    main = _load_example(f"{name}_torch").main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_examples(dev: str, smi: str) -> dict:
+    """Phase 16: each example's twin on the card (see the module docstring).
+    Returns each twin's kernel launch counts (``_build.LAUNCHES``)."""
+    from repro_torch.core import selection
+    from repro_torch.kernels import _build
+
+    compare = _load_example("_compare_torch").compare_printed
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        for name, args in EXAMPLE_ARGS.items():
+            argv = [a.format(out=str(Path(tmp) / name)) for a in args]
+            host = ""
+            if name in EXAMPLES_ON_HOST:
+                log = []
+                with selection.recorded(log):
+                    want, host_wall = _example_run(name, argv + ["--device", "cpu"])
+                seen = selection.Partings()
+                _build.reset_launch_counts()
+                with selection.compared([(r.to(dev), k.to(dev)) for r, k in log], seen):
+                    got, wall = _example_run(name, argv + ["--device", dev])
+                # floats only while the runs have not parted: every line prints after the last round
+                problems = compare(want, got, machine=EXAMPLE_MACHINE, exact=EXAMPLE_EXACT, floats=seen.first is None)
+                check(not problems, f"{name}: the card's lines differ from the host's:\n" + "\n".join(problems))
+                apart = ("never part: integers and floats held" if seen.first is None else
+                         f"first part at compression {seen.first} ({seen.rows} row(s), the k-th and (k+1)-th "
+                         f"magnitudes {seen.rel_gap:.2e} apart: a near-tie; every residual up to it within the "
+                         f"golden tolerance): integers held")
+                host = (f"; the host's lines in {host_wall:.3f} s; the card's and the host's {seen.compressions} "
+                        f"top-k selections {apart}")
+            else:
+                _build.reset_launch_counts()
+                got, wall = _example_run(name, argv + ["--device", dev])
+            launches[name] = _build.launch_counts()
+            for line in got.splitlines():
+                print(f"[ex {name}] {line}")
+            print(f"[examples] {name}: {wall:.3f} s wall on the card, launches {launches[name]}{host}; {smi}")
+            check(got.strip(), f"{name} printed nothing")
+            check(not any(launches[name].values()),
+                  f"{name} launched {launches[name]}: no kernel of this repo is on the examples' top-k paths")
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"[examples] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _to(tree, dev):
     from repro_torch.transport.device import _on
 
@@ -3859,11 +3984,11 @@ def _to(tree, dev):
 
 
 def run_only(dev, only: list) -> int:
-    """``--only c4,lm,archs,steps,plan``: the named checks alone, in that
-    order, after the build (for working on one of them): "c4" phase 4's
-    kernel_topk run and phase 11's fused round on its states, "lm" phase 12,
-    "archs" phase 13, "steps" phase 14, "plan" phase 15.  No result
-    lines."""
+    """``--only c4,lm,archs,steps,plan,examples``: the named checks alone,
+    in that order, after the build (for working on one of them): "c4" phase
+    4's kernel_topk run and phase 11's fused round on its states, "lm" phase
+    12, "archs" phase 13, "steps" phase 14, "plan" phase 15, "examples"
+    phase 16.  No result lines."""
     for name in only:  # in the order given
         if name == "c4":
             bundle = build_task(dev)
@@ -3878,8 +4003,10 @@ def run_only(dev, only: list) -> int:
             print(f"[only] phase 14: {phase_steps(dev, nvidia_smi())}")
         elif name == "plan":
             print(f"[only] phase 15: {phase_plan(dev, nvidia_smi())}")
+        elif name == "examples":
+            print(f"[only] phase 16: {phase_examples(dev, nvidia_smi())}")
         else:
-            fail(f"--only takes c4, lm, archs, steps and plan, not {name!r}")
+            fail(f"--only takes c4, lm, archs, steps, plan and examples, not {name!r}")
     print(f"[only] {only} passed")
     return 0
 
@@ -3993,6 +4120,15 @@ def main() -> int:
     # 15. launch planning: the dry run on the fake 256- and 512-rank meshes, rank 0 of a 16 x 16 step for real,
     # the host mesh (no kernel of this repo on its path)
     phase_plan(dev, smi)
+    # 16. the nine examples' twins at their own sizes: their launches under a new key, by twin (B3's tile and leaf
+    # entries share one counter)
+    examples = phase_examples(dev, smi)
+    for entry, counter in [(kernels["block_topk"], "block_topk"), (kernels["block_topk"]["bf16"], "block_topk_bf16"),
+                           (kernels["pack_sparse_blocks"], "pack_sparse_blocks"),
+                           (kernels["unpack_sparse_blocks"], "unpack_sparse_blocks"),
+                           (kernels["unpack_sparse_blocks_into"], "unpack_sparse_blocks"),
+                           (kernels["quantize"], "quantize"), (kernels["quantize"]["bf16"], "quantize_bf16")]:
+        entry["examples_launches"] = {name: counts[counter] for name, counts in examples.items()}
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

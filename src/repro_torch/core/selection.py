@@ -10,7 +10,11 @@ comparison cannot tell such a parting from a fault.  So the comparison is
 made round by round: `recorded` keeps each compression's residual rows
 and kept mask in one run, and `imposed` makes the other run keep those
 coordinates, after checking that wherever its own choice differs the
-parting is one that rounding decides.
+parting is one that rounding decides.  Where one run cannot follow the
+other's selections for long (a trajectory that amplifies rounding, so the
+residuals drift apart even on the same coordinates), `compared` lets the
+second run choose for itself and finds the first parting, which must be a
+near-tie: the two runs agree up to it.
 
 The near-tie test of a parted row, with ``a`` the imposing run's residual
 row, ``b`` the recorded one and ``delta = max |a - b|``: the two
@@ -44,6 +48,7 @@ from repro_torch.core import compression as C
 from repro_torch.kernels.ref import BISECT_ITERS
 
 SELECTORS = (C.TopK, C.BlockTopK, C.KernelBlockTopK)
+RTOL, ATOL = 1e-4, 1e-6  # the golden tolerance, which `compared` holds residuals to before their runs part
 
 
 def _rows(comp, x: torch.Tensor) -> torch.Tensor:
@@ -98,16 +103,19 @@ def recorded(log: list):
 
 @dataclasses.dataclass
 class Partings:
-    """What `imposed` saw: the compressions it imposed, the rows whose own
-    choice differed (all near-ties, or it raised), the largest relative
-    gap between a parted row's k-th and (k+1)-th magnitudes (``rel_gap``)
-    and the largest gap between two thresholds as a share of its allowance
-    (``of_allowance``: at most 1 by the check)."""
+    """What `imposed` (or `compared`) saw: the compressions it imposed (or
+    compared), the rows whose own choice differed (all near-ties, or it
+    raised), the largest relative gap between a parted row's k-th and
+    (k+1)-th magnitudes (``rel_gap``), the largest gap between two
+    thresholds as a share of its allowance (``of_allowance``: at most 1 by
+    the check) and the index of the first compression whose choice
+    differed (``first``; None while none has)."""
 
     compressions: int = 0
     rows: int = 0
     rel_gap: float = 0.0
     of_allowance: float = 0.0
+    first: int | None = None
 
 
 def _threshold(comp, rows: torch.Tensor, k: int) -> torch.Tensor:
@@ -145,6 +153,50 @@ def _rel_margin(rows: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(kth > 0, (kth - nxt) / torch.where(kth > 0, kth, 1.0), torch.inf)
 
 
+def _check_close(rows: torch.Tensor, ref: torch.Tensor, index: int) -> None:
+    """Raise unless every row of the residual lies within the golden
+    tolerance of its recorded row's largest magnitude."""
+    scale = torch.amax(torch.abs(ref.float()), dim=-1)
+    drift = torch.amax(torch.abs(rows.float() - ref.float()), dim=-1)
+    bad = drift > ATOL + RTOL * scale
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad)[0])
+        raise AssertionError(f"compression {index}, row {i}: the residuals differ by {float(drift[i])!r} before "
+                             f"the runs part, beyond the golden tolerance of a row of scale {float(scale[i])!r}")
+
+
+def _check_parted(comp, rows: torch.Tensor, ref: torch.Tensor, want: torch.Tensor, own: torch.Tensor,
+                  seen: Partings) -> None:
+    """Count compression ``seen.compressions`` (its residual ``rows``, the
+    recorded ``ref`` and ``want``, its own choice ``own``) in ``seen``;
+    raise unless every row whose choice differs is a near-tie."""
+    if ref.shape != rows.shape:
+        raise AssertionError(f"compression {seen.compressions}: rows {tuple(rows.shape)}, recorded "
+                             f"{tuple(ref.shape)}: the two runs compress different leaves")
+    seen.compressions += 1
+    parted = (own != want).any(dim=-1)
+    if not bool(parted.any()):
+        return
+    r = torch.nonzero(parted).flatten()
+    a, b, k = rows[r], ref[r], _k(comp, rows)
+    delta = torch.amax(torch.abs(a.float() - b.float()), dim=-1)
+    allow = delta + _step(comp, a) + _step(comp, b)
+    gap = torch.abs(_threshold(comp, a, k) - _threshold(comp, b, k))
+    bad = gap > allow
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad)[0])
+        raise AssertionError(
+            f"compression {seen.compressions - 1}, row {int(r[i])}: the selections part off a "
+            f"near-tie: their thresholds differ by {float(gap[i])!r}, the residuals by "
+            f"{float(delta[i])!r} (allowance with the thresholds' steps {float(allow[i])!r})"
+        )
+    seen.rows += int(r.numel())
+    seen.rel_gap = max(seen.rel_gap, float(_rel_margin(a, k).max()))
+    seen.of_allowance = max(seen.of_allowance, float(torch.where(allow > 0, gap / allow, 0.0).max()))
+    if seen.first is None:
+        seen.first = seen.compressions - 1
+
+
 @contextlib.contextmanager
 def imposed(log, partings: Partings | None = None):
     """Within the block, each top-k compression keeps the coordinates of the
@@ -163,33 +215,49 @@ def imposed(log, partings: Partings | None = None):
             if x.is_meta or not queue:
                 return own_out
             ref, want = queue.popleft()
-            rows = _rows(self, x)
-            if ref.shape != rows.shape:
-                raise AssertionError(f"compression {seen.compressions}: rows {tuple(rows.shape)}, recorded "
-                                     f"{tuple(ref.shape)}: the two runs compress different leaves")
-            seen.compressions += 1
-            own = _rows(self, own_out) != 0
-            parted = (own != want).any(dim=-1)
-            if bool(parted.any()):
-                r = torch.nonzero(parted).flatten()
-                a, b, k = rows[r], ref[r], _k(self, rows)
-                delta = torch.amax(torch.abs(a.float() - b.float()), dim=-1)
-                allow = delta + _step(self, a) + _step(self, b)
-                gap = torch.abs(_threshold(self, a, k) - _threshold(self, b, k))
-                bad = gap > allow
-                if bool(bad.any()):
-                    i = int(torch.nonzero(bad)[0])
-                    raise AssertionError(
-                        f"compression {seen.compressions - 1}, row {int(r[i])}: the selections part off a "
-                        f"near-tie: their thresholds differ by {float(gap[i])!r}, the residuals by "
-                        f"{float(delta[i])!r} (allowance with the thresholds' steps {float(allow[i])!r})"
-                    )
-                seen.rows += int(r.numel())
-                seen.rel_gap = max(seen.rel_gap, float(_rel_margin(a, k).max()))
-                seen.of_allowance = max(seen.of_allowance, float(torch.where(allow > 0, gap / allow, 0.0).max()))
+            _check_parted(self, _rows(self, x), ref, want, _rows(self, own_out) != 0, seen)
             flat = x.reshape(x.shape[0], -1)
             mask = want.reshape(flat.shape[0], -1)[:, : flat.shape[1]]
             return (flat * mask.to(flat.dtype)).reshape(x.shape)
+
+        return compress_nodes
+
+    with _patched(wrap):
+        yield seen
+    if queue:
+        raise AssertionError(f"{len(queue)} recorded compressions were never made: the runs compress differently")
+
+
+@contextlib.contextmanager
+def compared(log, partings: Partings | None = None):
+    """Within the block, each top-k compression chooses for itself and is
+    compared with the next ``(rows, kept)`` of ``log`` (consumed in order).
+    Up to and including the first whose choice of a row differs, every
+    residual must agree with the recorded one within the golden tolerance
+    of its row's largest magnitude (rtol ``RTOL``, atol ``ATOL``), which is
+    what makes that parting a rounding near-tie and not a fault, and the
+    parting must pass `imposed`'s near-tie test; otherwise this raises.
+    From that compression on the two runs are apart, so later ones are
+    only counted (``partings.first`` says where; None if the runs never
+    part).  Both runs must make the same number of compressions."""
+    queue = collections.deque(log)
+    seen = partings if partings is not None else Partings()
+
+    def wrap(fn):
+        def compress_nodes(self, x, generator=None):
+            own_out = fn(self, x, generator)
+            if x.is_meta:
+                return own_out
+            if not queue:
+                raise AssertionError("this run compresses more often than the recorded one")
+            ref, want = queue.popleft()
+            if seen.first is None:
+                rows = _rows(self, x)
+                _check_parted(self, rows, ref, want, _rows(self, own_out) != 0, seen)
+                _check_close(rows, ref, seen.compressions - 1)
+            else:
+                seen.compressions += 1
+            return own_out
 
         return compress_nodes
 

@@ -22,6 +22,7 @@ as-is.
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Any
 
 from repro_torch.obs.records import (
@@ -31,6 +32,10 @@ from repro_torch.obs.records import (
     timing_record,
 )
 from repro_torch.obs.timeline import HostSpans, save_merged_trace
+
+
+#: one serial number a handle, never reused in the process (`Obs.heartbeat_cache_key`)
+_SERIALS = itertools.count()
 
 
 class Obs:
@@ -48,6 +53,7 @@ class Obs:
         self.heartbeat_every = int(heartbeat_every)
         self.run = str(run)
         self.hostspans = HostSpans()
+        self.serial = next(_SERIALS)
 
     # -- emission -----------------------------------------------------------
     def emit(self, record: dict) -> None:
@@ -92,8 +98,10 @@ class Obs:
         """The cache-key component of a compiled run's round bodies built
         with this handle, as the reference keys its scans: a body cached
         for one heartbeat handle is never reused with another (or with
-        heartbeats off)."""
-        return ("hb", self.heartbeat_every, id(self)) if self.heartbeat_on else ("hb", 0)
+        heartbeats off).  The handle is named by its serial number, never
+        by ``id(self)``: a cached body does not hold the handle, so once it
+        is freed a new one could take its address and its entry."""
+        return ("hb", self.heartbeat_every, self.serial) if self.heartbeat_on else ("hb", 0)
 
     def close(self) -> None:
         close = getattr(self.sink, "close", None)

@@ -245,6 +245,21 @@ def test_heartbeat_handles_do_not_share_a_cached_body(bundle):
     assert [len(s.rows(kind="heartbeat")) for s in sinks] == [4, 4]
 
 
+def test_sixteen_freed_heartbeat_handles_build_sixteen_bodies(bundle):
+    """Handles built in turn as call arguments are freed after their run,
+    so a key by address can meet a dead handle's entry; a key by the
+    handle's serial number never does (ROADMAP §C, C8)."""
+    pt = ptopo.ring(4)
+    cache: dict = {}
+    sinks = [pobs.MemorySink() for _ in range(16)]
+    for s in sinks:
+        PA.run_async_compiled(bundle.problem, pt, P.C2DFBConfig(**CFG), bundle.x0, bundle.y0, 2, fabric=_fabric(pt),
+                              policy="bounded", bound=1, fn_cache=cache, obs=pobs.Obs(sink=s, heartbeat_every=1),
+                              device="cpu")
+    assert len(cache) == 16
+    assert [[b["round"] for b in s.rows(kind="heartbeat")] for s in sinks] == [[0, 1]] * 16
+
+
 def test_a_host_draw_source_is_refused_on_a_card():
     """On a card the draws run inside captured graphs, which replay a
     ``torch.Generator`` on the card only (checked before any work)."""

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: importing it loads neither jax nor any
-module of the JAX package, no source of it (or chip_smoke.py) imports them,
-and its entry points refuse to fall back to the CPU silently."""
+"""The PyTorch port stands alone: importing it (or chip_smoke.py, or an
+example's twin, ``examples/*_torch.py``) loads neither jax nor any module
+of the JAX package, no source of them imports them, and its entry points
+refuse to fall back to the CPU silently."""
 
 import ast
 import os
@@ -13,6 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
+TWINS = sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -33,6 +35,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "import importlib.util\n"
+        f"for path in {[str(p) for p in TWINS]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('twin', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print('BAD', bad)\n"
@@ -48,7 +54,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+    + [str(p.relative_to(ROOT)) for p in TWINS],
 )
 def test_no_source_imports_jax_or_the_reference(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
