@@ -3696,6 +3696,17 @@ PLAN_CASES = [("phi3-mini-3.8b", "train_4k", v) for v in ("baseline", "remat_dot
     ("seamless-m4t-medium", "prefill_32k", "baseline"),
     ("llama-3.2-vision-11b", "prefill_32k", "baseline"),
     ("qwen2-7b", "train_4k", "baseline"),  # 28 heads on 16: attention split by queries
+    # the global MoE dispatch (one capacity, its buffer reduced over the data shards), at each shape
+    ("mixtral-8x7b", "train_4k", "baseline"),
+    ("mixtral-8x7b", "prefill_32k", "baseline"),
+    ("mixtral-8x7b", "decode_32k", "baseline"),
+    ("mixtral-8x7b", "long_500k", "baseline"),
+    # Mamba-2 on each device's heads (w_in's columns permuted; the projection gathered at decode)
+    ("mamba2-2.7b", "train_4k", "baseline"),
+    ("mamba2-2.7b", "decode_32k", "baseline"),
+    ("jamba-1.5-large-398b", "decode_32k", "baseline"),
+    ("seamless-m4t-medium", "decode_32k", "baseline"),  # an encoder its decode never reads
+    ("gemma2-27b", "train_4k", "remat_dots"),
 ]
 PLAN_REAL_LAYERS = 2  # (b): train_4k, rank 0 of 16 x 16
 # (b)'s models: gemma2-27b at 2 layers is one repeat, which before the vocabulary-parallel cross-entropy and

@@ -29,10 +29,13 @@ XLA's body-once keys (``xla_cost_*``, ``flops_trip_ratio``,
 ``flops_undercounted``) have no counterpart: the port's loops over layers
 and chunks run eagerly, so every iteration is counted, which is why the
 reference's ``launch/hlo_cost.py`` (a trip-count-aware HLO walk) is not
-ported.  Argument bytes are the local-shard sums of the arguments (the
-optimizer's step counter, a Python integer here, counts as the reference's
-int32 scalar; so does decode's position); output bytes those of the
-outputs under the reference's out-shardings.  A case that raises is
+ported.  Argument bytes are the local-shard sums of the arguments that
+the step reads (an operator other than a view takes them in, or they are
+outputs), as jit prunes the rest: an SSM stack's decode position, an audio
+model's encoder at decode.  The optimizer's step counter, a Python integer
+here, counts as the reference's int32 scalar; so does decode's position
+where an attention layer writes its cache at it.  Output bytes are those
+of the outputs under the reference's out-shardings.  A case that raises is
 recorded as ``status: "error"`` with its traceback.
 
 Usage:
@@ -90,6 +93,10 @@ _PROPAGATION = frozenset({"_propagate_tensor_meta_non_cached", "_propagate_tenso
 #: gathers a group's worth and narrows it (on dimension 0 a view of the
 #: group-sized buffer); its output counts as its own bytes
 _OWN_BYTES = frozenset({"_dtensor.shard_dim_alltoall"})
+#: operators whose output is their input on the card (a collective's wait)
+#: where the fake implementation allocates a new storage: the output shares
+#: its input's bytes, live while either is
+_ALIASES = frozenset({"_c10d_functional.wait_tensor"})
 
 
 @dataclasses.dataclass
@@ -98,7 +105,9 @@ class Case:
     (trees), their shardings and the outputs', the config and the shape.
     Decode's ``fn`` takes the position as a tensor argument (the
     reference's int32 scalar, for its bytes) and gives the step the last
-    slot's position as a Python integer."""
+    slot's position as a Python integer; ``host_read`` names the arguments
+    (by index) that the step reads so, on the host: the position, where a
+    layer writes a cache slot at it."""
 
     fn: object
     args: tuple
@@ -106,6 +115,7 @@ class Case:
     out_sh: object
     cfg: object
     shape: object
+    host_read: tuple = ()
 
 
 def _batch_shardings(mesh, specs: dict) -> dict:
@@ -209,7 +219,9 @@ def build_case(arch: str, shape_name, mesh, variant: str = "baseline", smoke: bo
 
         args = (pshapes, specs["token"], specs["pos"], caches)
         in_sh = (psh, batch_sh["token"], replicated(mesh), cache_sh)
-    return Case(fn, args, in_sh, (logits_sh, cache_sh), cfg, shape)
+    # only a cached attention layer reads the position (an SSM stack never does)
+    writes_slot = any(cfg.layer_kind(p) not in ("mamba", "cross") for p in range(len(cfg.pattern)))
+    return Case(fn, args, in_sh, (logits_sh, cache_sh), cfg, shape, host_read=(2,) if writes_slot else ())
 
 
 def install_activation_constraint(mesh) -> None:
@@ -274,29 +286,42 @@ class LocalCost(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.made: dict = collections.Counter()  # bytes of the storages each operator made
+        self.read: set = set()  # the storages an operator other than a view took in
         self._seen: dict = {}
+        self._allocs: dict = {}
 
-    def track(self, t: torch.Tensor, made_by: str | None = None, own: bool = False) -> None:
+    def track(self, t: torch.Tensor, made_by: str | None = None, own: bool = False,
+              alias_of: torch.Tensor | None = None) -> None:
         """Count ``t``'s storage as live until it is freed (and its bytes
         against the operator ``made_by``); with ``own``, only ``t``'s own
-        bytes of it."""
+        bytes of it.  With ``alias_of``, a tracked tensor whose storage
+        ``t``'s stands for, the two share one count of bytes."""
         st = _storage(t)
         if st is None:
             return
         key = st._cdata
         if key in self._seen and self._seen[key]() is not None:
             return
-        n = _nbytes(t) if own else st.nbytes()
-        if made_by is not None:
-            self.made[made_by] += n
+        src = _storage(alias_of) if alias_of is not None else None
+        alloc = self._allocs.get(src._cdata) if src is not None else None
+        if alloc is None:
+            n = _nbytes(t) if own else st.nbytes()
+            if made_by is not None:
+                self.made[made_by] += n
+            alloc = [n, 0]  # its bytes, and how many of its storages live
+            self.live += n
+            self.peak = max(self.peak, self.live)
+        alloc[1] += 1
+        self._allocs[key] = alloc
         self._seen[key] = weakref.ref(st)
-        self.live += n
-        self.peak = max(self.peak, self.live)
-        weakref.finalize(st, self._free, key, n)
+        weakref.finalize(st, self._free, key, alloc)
 
-    def _free(self, key, n: int) -> None:
-        self.live -= n
+    def _free(self, key, alloc: list) -> None:
         self._seen.pop(key, None)
+        self._allocs.pop(key, None)
+        alloc[1] -= 1
+        if not alloc[1]:
+            self.live -= alloc[0]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -307,15 +332,22 @@ class LocalCost(TorchDispatchMode):
         out = func(*args, **kwargs)
         if _in_propagation():
             return out
+        outs = [t for t in tree_leaves(list(out) if isinstance(out, (tuple, list)) else out)
+                if isinstance(t, torch.Tensor)]
+        if outs and not getattr(func, "is_view", False):  # a view, or a query (its device), reads nothing
+            for t in tree_leaves([*args, *kwargs.values()]):
+                st = _storage(t) if isinstance(t, torch.Tensor) else None
+                if st is not None:
+                    self.read.add(st._cdata)
         packet = func.overloadpacket
         if self.count and packet in self.registry:
             self.flops += int(self.registry[packet](*args, **kwargs, out_val=out))
         if self.count and packet in DOT_OPERANDS:
             self.dot_bytes += sum(_nbytes(args[i]) for i in DOT_OPERANDS[packet]) + _nbytes(out)
         own = str(packet) in _OWN_BYTES
-        for t in tree_leaves(list(out) if isinstance(out, (tuple, list)) else out):
-            if isinstance(t, torch.Tensor):
-                self.track(t, str(packet), own)
+        alias = args[0] if str(packet) in _ALIASES else None
+        for t in outs:
+            self.track(t, str(packet), own, alias)
         return out
 
 
@@ -340,6 +372,19 @@ def _bytes_of(tree, sh_tree) -> int:
         return sum(_bytes_of(t, s) for t, s in zip(tree, sh_tree))
     if isinstance(tree, torch.Tensor):
         return math.prod(sh_tree.local_shape(tree.shape)) * tree.element_size()
+    return 0
+
+
+def _read_bytes(tree, read: set) -> int:
+    """The local-shard bytes of the DTensors of ``tree`` whose shards'
+    storages are in ``read``."""
+    if isinstance(tree, dict):
+        return sum(_read_bytes(v, read) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_read_bytes(v, read) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        local = tree.to_local()
+        return _nbytes(local) if getattr(_storage(local), "_cdata", None) in read else 0
     return 0
 
 
@@ -406,6 +451,35 @@ def host_index_math():
         cls.local_shard_size_and_offset = orig
 
 
+@contextlib.contextmanager
+def alltoall_as_operator():
+    """Within the block, DTensor's all-to-all on a CPU mesh runs as its
+    operator (``_dtensor.shard_dim_alltoall``, whose fake implementation
+    serves the fake mode), as it does on the card's: on a CPU mesh DTensor
+    falls back to an all-gather and a chunk, which would count a group's
+    worth of bytes (16 x the output on the model axis) as an all-gather
+    and as live storage."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import placement_types
+
+    orig = getattr(placement_types, "shard_dim_alltoall", None)
+    if orig is None:
+        yield
+        return
+
+    def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu":
+            return orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+        group = funcol._group_or_group_name(funcol._resolve_group((mesh, mesh_dim)))
+        return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim, group)
+
+    placement_types.shard_dim_alltoall = shard_dim_alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = orig
+
+
 def run_case(case: Case, device, make_local, count: bool = True) -> dict:
     """Run ``case`` once on DTensors built by ``make_local`` (fake or real
     local shards on ``device``), under `CollectiveBytes` and `LocalCost`.
@@ -418,11 +492,15 @@ def run_case(case: Case, device, make_local, count: bool = True) -> dict:
         cost.track(t)
     arg_live = cost.live
     t0 = time.perf_counter()
-    with implicit_replication(), comm, cost:
+    with implicit_replication(), alltoall_as_operator(), comm, cost:
         out = _place(case.fn(*args), case.out_sh)
     wall = time.perf_counter() - t0
     out_bytes = _bytes_of(out, case.out_sh)
-    arg_bytes = _bytes_of(case.args, case.in_sh)
+    # an argument that the step never reads is no argument, as jit prunes it
+    # (an SSM stack's decode position, an audio model's encoder at decode)
+    kept = cost.read | {st._cdata for st in map(_storage, _local_leaves(out)) if st is not None}
+    arg_bytes = sum(_bytes_of(a, s) if i in case.host_read else _read_bytes(a, kept)
+                    for i, (a, s) in enumerate(zip(args, case.in_sh)))
     held = {st._cdata for st in map(_storage, _local_leaves(args)) if st is not None}
     new_out = sum(_nbytes(t) for t in _local_leaves(out) if getattr(_storage(t), "_cdata", None) not in held)
     return {

@@ -38,6 +38,7 @@ KINDS = {
     "reduce_scatter_tensor": "reduce-scatter",
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",  # DTensor's own operator (its namespace is _dtensor)
 }
 
 
@@ -68,7 +69,7 @@ class CollectiveBytes(CommDebugMode):
         out = func(*args, **(kwargs or {}))
         packet = getattr(func, "_overloadpacket", None)
         kind = KINDS.get(getattr(packet, "__name__", "")) if packet is not None else None
-        if kind is not None and getattr(func, "namespace", "") in ("_c10d_functional", "c10d_functional"):
+        if kind is not None and getattr(func, "namespace", "") in ("_c10d_functional", "c10d_functional", "_dtensor"):
             self.comm_counts[packet] += 1
             self.bytes_by_kind[kind] += _out_bytes(out)
             self.counts_by_kind[kind] += 1

@@ -30,7 +30,10 @@ on each device's shards after the projections (`_attn_sharded`): split
 by heads where the model axis divides them, else by queries, so no score,
 mask or repeated key exists beyond a device's share; decode writes the
 new key and value into a cache sharded on its slots by an elementwise
-``where`` (`_write_slot`).
+``where`` (`_write_slot`), takes the softmax on the slots' shards
+(`repro_torch.models.sharded.softmax`) and, where a batch of one leaves
+the data axes idle, splits the value product's heads over them
+(`_values_on_idle_data`).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers import apply_rope, bias_init, dense_init, init_device, linear, softcap
-from repro_torch.models.sharded import einsum, is_dtensor, shard_index, split_dim
+from repro_torch.models.sharded import einsum, is_dtensor, shard_index, softmax, split_dim
 from repro_torch.models.remat import checkpoint
 
 NEG_INF = -2.0e38
@@ -257,6 +260,9 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tens
         out = cache.clone()
         out[:, :, slot] = new[:, :, 0]
         return out
+    from torch.distributed.tensor import Replicate
+
+    new = new.redistribute(new.device_mesh, [Replicate()] * new.device_mesh.ndim)  # one token: it follows the cache
     at = torch.arange(cache.shape[2], device=new.device).reshape(1, 1, -1, 1, 1) == slot
     return torch.where(at, new, cache)
 
@@ -284,6 +290,46 @@ def attn_decode(p, cfg, x_t, cache, pos: int, kind="full", memory=None):
     if kind == "swa" and cfg.window:
         valid = valid & (slot_pos > (pos - cfg.window))
     scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    out = _gqa_out(probs, v_cache)
+    probs = softmax(scores, -1).to(v_cache.dtype)
+    out = _values_on_idle_data(probs, v_cache) if is_dtensor(probs) else None
+    if out is None:
+        out = _gqa_out(probs, v_cache)
     return linear(out, p["wo"]), {"k": k_cache, "v": v_cache, "slot_pos": slot_pos}
+
+
+def _values_on_idle_data(probs, v):
+    """A decode step's value product, probs (m, B, KV, G, 1, S) and v (m,
+    B, S, KV, hd) DTensors, where the batch leaves the data axes idle (B
+    = 1): the query heads split over the data axes on each device's shards
+    (its heads' KV heads taken from v), as the reference's compiled step
+    splits this product (and not the scores).  The output (m, B, 1, H hd)
+    is sharded on its heads over the data axes, a Partial sum where the
+    slots are sharded.  None where the data axes shard the batch or do not
+    divide the query heads."""
+    import math
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = probs.device_mesh
+    data = [i for i, n in enumerate(mesh.mesh_dim_names) if n in ("pod", "data") and mesh.size(i) > 1]
+    n = math.prod(mesh.size(i) for i in data)
+    m, B, KV, G, _, S = probs.shape
+    H, hd = KV * G, v.shape[-1]
+    if not data or any(isinstance(probs.placements[i], Shard) for i in data) or H % n or (H // n) % G and G % (H // n):
+        return None
+    hq = H // n
+    slots = [i for i, pl in enumerate(v.placements) if isinstance(pl, Shard) and pl.dim == 2]
+    p_pl = [Shard(5) if i in slots else Replicate() for i in range(mesh.ndim)]
+    v_pl = [Shard(2) if i in slots else Replicate() for i in range(mesh.ndim)]
+    out_pl = [Shard(3) if i in data else Partial() if i in slots else Replicate() for i in range(mesh.ndim)]
+
+    def local(pr, vl):
+        h0 = shard_index(mesh, data)[0] * hq
+        k0, k1 = h0 // G, (h0 + hq - 1) // G + 1
+        sel = pr.reshape(m, B, H, 1, pr.shape[-1])[:, :, h0:h0 + hq].reshape(m, B, k1 - k0, hq // (k1 - k0), 1, -1)
+        out = einsum("nbkgqs,nbskh->nbqkgh", sel, vl[:, :, :, k0:k1])
+        return out.reshape(m, B, 1, hq * hd)
+
+    return local_map(local, out_placements=out_pl, in_placements=(p_pl, v_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(probs, v)

@@ -40,7 +40,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.remat import checkpoint, product
-from repro_torch.models.sharded import bmm, is_dtensor, vocab_parallel_nll
+from repro_torch.models.sharded import (
+    bmm,
+    idle_model_dims,
+    idle_model_head,
+    is_dtensor,
+    rms_norm_on_shards,
+    shard_dims,
+    vocab_parallel_nll,
+)
 
 # ---------------------------------------------------------------------------
 # sharding hooks
@@ -136,6 +144,17 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def head_linear(x: torch.Tensor, w: torch.Tensor, serve: bool = False) -> torch.Tensor:
+    """`linear` for the LM head (of a serve step with ``serve``); on DTensors
+    whose vocabulary the model axis leaves whole,
+    `repro_torch.models.sharded.idle_model_head`."""
+    if not (is_dtensor(w) and idle_model_dims(w)):
+        return linear(x, w)
+    m = x.shape[0]
+    out = idle_model_head(x.reshape(m, -1, x.shape[-1]), w, serve)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def _per_node(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A per-node vector (m, d) shaped to broadcast against x (m, ..., d)."""
     return v.reshape(v.shape[0], *([1] * (x.dim() - 2)), v.shape[-1])
@@ -147,7 +166,10 @@ def _per_node(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x (m, ..., d), scale (m, d)."""
+    """x (m, ..., d), scale (m, d).  A DTensor sharded on d is normalized
+    on its shards (`repro_torch.models.sharded.rms_norm_on_shards`)."""
+    if is_dtensor(x) and shard_dims(x, -1):
+        return rms_norm_on_shards(x, scale, eps)
     xf = x.to(torch.float32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
@@ -236,7 +258,7 @@ def softcap(x: torch.Tensor, cap) -> torch.Tensor:
 def _chunk_nll(h: torch.Tensor, lab: torch.Tensor, mk: torch.Tensor, lm_head: torch.Tensor, logit_cap):
     """One sequence chunk: the masked NLL sum and the mask count, per node.
     h (m, B, c, D), lab / mk (m, B, c), lm_head (m, D, V)."""
-    logits = linear(h, lm_head).to(torch.float32)
+    logits = head_linear(h, lm_head).to(torch.float32)
     logits = softcap(logits, logit_cap)
     if is_dtensor(logits):  # the dry run's sharded step: the vocabulary stays sharded
         nll = vocab_parallel_nll(logits, lab)

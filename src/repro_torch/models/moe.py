@@ -32,6 +32,10 @@ bits.
 
 The load-balance loss (Switch style): E sum_e f_e p_e, and with dispatch
 groups (G > 1) the reference's grouped form, scaled by topk.
+
+On DTensors (the dry run's sharded step) `_moe_sharded` dispatches on
+shards: with the reference's one global capacity, or with dispatch groups
+that follow the data shards.
 """
 
 from __future__ import annotations
@@ -164,43 +168,198 @@ def _moe_tokens_grouped(p: dict, cfg, xg: torch.Tensor, capacity_factor: float):
 
 
 def _moe_sharded(p: dict, cfg, x, capacity_factor: float):
-    """`moe_apply` on DTensors (the dry run's sharded step), run on each
-    device's shards (``local_map``): its batch shard of the tokens, the
-    experts' d_ff shard over "model" (d_model gathered, the router
-    replicated).  Each device dispatches its own tokens with its own
-    capacity (its share of the dispatch groups, or one group), so the
-    output is a Partial sum over "model" and the aux loss the mean over
-    the data shards.  The reference's ungrouped dispatch keeps one global
-    capacity instead; the costs are those of the shard-local dispatch."""
+    """`moe_apply` on DTensors (the dry run's sharded step).  x (m, B, S, D)
+    is sharded on its batch over the data axes where they divide it, the
+    experts' d_ff over "model".
+
+    With dispatch groups aligned to the data shards (``moe_local``), each
+    device dispatches its own tokens, its share of the groups, on its
+    shards (`_moe_sharded_grouped`).  Otherwise the dispatch is the
+    reference's global one (G = 1: one capacity C for the node's B S
+    tokens, `_moe_sharded_global`).  Either way the load-balance loss is
+    formed from the global means of the router's probabilities and of its
+    choices, as the reference's."""
+    _, B, S, _ = x.shape
+    G = _DISPATCH_GROUPS
+    if not (G > 1 and (B * S) % G == 0 and B * S >= 2 * G):
+        return _moe_sharded_global(p, cfg, x, capacity_factor)
+    n_data = math.prod(x.device_mesh.size(i) for i in _layout(x)[0])
+    if B % n_data == 0 and G % n_data == 0:
+        return _moe_sharded_grouped(p, cfg, x, capacity_factor, G // n_data, True)
+    # groups that do not follow the data shards: every device dispatches them all
+    return _moe_sharded_grouped(p, cfg, x, capacity_factor, G, False)
+
+
+def _layout(x, batch: bool | None = None):
+    """The mesh's data dimensions, whether x's batch (dimension 1) is
+    sharded over them (``batch``; by default where they divide it), and
+    ``place(on_data, on_model)``: the placements with ``on_data`` on the
+    data dimensions and ``on_model`` on "model"."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    data = [i for i, n in enumerate(mesh.mesh_dim_names) if n in ("pod", "data")]
+    if batch is None:
+        batch = x.shape[1] % math.prod(mesh.size(i) for i in data) == 0
+
+    def place(on_data, on_model):
+        return [on_data if i in data else on_model if n == "model" else Replicate()
+                for i, n in enumerate(mesh.mesh_dim_names)]
+
+    return data, batch, place
+
+
+def _aux_from_sums(cfg, probs_sum, picks_sum, T: int, scale: float):
+    """The load-balance loss E sum_e f_e p_e (times ``scale``) from the sums
+    over the node's T tokens of the router's probabilities and of its
+    top-k choices (m, E)."""
+    E, topk = cfg.num_experts, cfg.num_experts_per_tok
+    me = probs_sum / T
+    ce = picks_sum / (T * topk)
+    return E * torch.sum(me * ce, dim=-1) * scale
+
+
+def _route_sharded(p: dict, cfg, x, groups: int, place, batch: bool):
+    """The router on each device's tokens (split into ``groups`` groups):
+    the top-k choices and gates (m, groups, Tl, topk), sharded as the
+    tokens, and the sums of the probabilities and of the choices over the
+    tokens (m, E), Partial sums over the data axes where the batch is
+    sharded.  Replicated over "model"; the router's gradient a Partial sum
+    over the data axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    E = cfg.num_experts
+    tokens = Shard(1) if batch else Replicate()
+
+    def local(x_, router):
+        m, Bl, S, D = x_.shape
+        probs, idx, gates = _route({"router": router}, cfg, x_.reshape(m, groups, (Bl * S) // groups, D))
+        picks = torch.sum(_one_hot(idx, E).to(torch.float32), dim=(1, 2, 3))
+        return idx, gates, torch.sum(probs, dim=(1, 2)), picks
+
+    sums = place(Partial() if batch else Replicate(), Replicate())
+    rows = place(tokens, Replicate())
+    return local_map(local, out_placements=(rows, rows, sums, sums),
+                     in_placements=(place(tokens, Replicate()), place(Replicate(), Replicate())),
+                     in_grad_placements=(place(tokens, Replicate()), sums),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x, p["router"])
+
+
+def _moe_sharded_grouped(p: dict, cfg, x, capacity_factor: float, groups: int, batch: bool):
+    """Shard-local dispatch: each device's tokens (its batch shard with
+    ``batch``, else all of them) split into ``groups`` groups with their
+    own capacity (`_dispatch`), the experts' d_ff shard over "model"
+    (d_model gathered); the output a Partial sum over "model"."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = x.device_mesh
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    data = [n for n in mesh.mesh_dim_names if n in ("pod", "data")]
-    n_data = math.prod(sizes[n] for n in data)
-    batch = x.shape[1] % n_data == 0
-    ffn = cfg.d_ff % sizes.get("model", 1) == 0
+    _, batch, place = _layout(x, batch)
+    ffn = cfg.d_ff % dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1) == 0
+    tokens = Shard(1) if batch else Replicate()
+    idx, gates, probs_sum, picks_sum = _route_sharded(p, cfg, x, groups, place, batch)
+    part = Partial() if ffn else Replicate()
+    per_data = Partial() if batch else Replicate()
 
-    def place(shard_data, model):
-        return [shard_data if n in data else model if n == "model" else Replicate() for n in mesh.mesh_dim_names]
+    def local(x_, wi, wg, wo, idx_, gates_):
+        m, Bl, S, D = x_.shape
+        xg = x_.reshape(m, groups, (Bl * S) // groups, D)
+        out = _dispatch({"wi": wi, "wg": wg, "wo": wo}, cfg, xg, idx_, gates_, capacity_factor)
+        return out.reshape(m, Bl, S, D)
 
-    x_pl = place(Shard(1) if batch else Replicate(), Replicate())
-    w_in = place(Replicate(), Shard(3) if ffn else Replicate())
-    w_out = place(Replicate(), Shard(2) if ffn else Replicate())
-    rep = place(Replicate(), Replicate())
-    out_pl = place(Shard(1) if batch else Replicate(), Partial() if ffn else Replicate())
-    aux_pl = place(Partial("avg") if batch else Replicate(), Replicate())
-    groups = max(1, _DISPATCH_GROUPS // n_data) if batch else _DISPATCH_GROUPS
+    w_in, w_out = Shard(3) if ffn else Replicate(), Shard(2) if ffn else Replicate()
+    out = local_map(local, out_placements=place(tokens, part),
+                    in_placements=(place(tokens, Replicate()), place(Replicate(), w_in), place(Replicate(), w_in),
+                                   place(Replicate(), w_out), place(tokens, Replicate()), place(tokens, Replicate())),
+                    in_grad_placements=(place(tokens, part), place(per_data, w_in), place(per_data, w_in),
+                                        place(per_data, w_out), place(tokens, Replicate()), place(tokens, part)),
+                    device_mesh=mesh, redistribute_inputs=True)(x, p["wi"], p["wg"], p["wo"], idx, gates)
+    return out, _aux_from_sums(cfg, probs_sum, picks_sum, x.shape[1] * x.shape[2], cfg.num_experts_per_tok)
 
-    def local(x_, wi, wg, wo, router):
-        global _DISPATCH_GROUPS
-        saved, _DISPATCH_GROUPS = _DISPATCH_GROUPS, groups
-        try:
-            return moe_apply({"wi": wi, "wg": wg, "wo": wo, "router": router}, cfg, x_, capacity_factor)
-        finally:
-            _DISPATCH_GROUPS = saved
 
-    fn = local_map(local, out_placements=(out_pl, aux_pl), in_placements=(x_pl, w_in, w_in, w_out, rep),
-                   device_mesh=mesh, redistribute_inputs=True)
-    return fn(x, p["wi"], p["wg"], p["wo"], p["router"])
+def _moe_sharded_global(p: dict, cfg, x, capacity_factor: float):
+    """The reference's global dispatch (one capacity C for the node's T = B
+    S tokens) on shards:
+
+    1. each device routes its tokens and places each slot at its GLOBAL
+       position in its expert: its own exclusive cumulative sum plus the
+       slots the devices before it gave each expert (`sharded.sum_before`),
+       so the kept slots are the reference's;
+    2. it writes its kept slots into a zero buffer of the experts' C rows
+       each, laid out (C, m E, D) so that the capacity is its outer
+       dimension: the buffer is a Partial sum over the data axes, reduced
+       onto the capacity's shards where the data axes divide C, else onto
+       d_model's (a decode step's few tokens: C = 40 on 16);
+    3. the experts' products on the buffer's shards, d_ff over "model"
+       (`sharded.einsum`);
+    4. their output, a Partial sum over "model", is gathered over the data
+       axes (on its outer dimension: no copy to reorder it), and each
+       device combines its own slots.
+
+    The output is a Partial sum over "model", sharded as x on its batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.models.sharded import einsum, sum_before
+
+    mesh = x.device_mesh
+    m, B, S, D = x.shape
+    E, topk = cfg.num_experts, cfg.num_experts_per_tok
+    N, T = m * E, B * S
+    C = max(8, int(T * topk / E * capacity_factor))
+    data, batch, place = _layout(x)
+    n_data = math.prod(mesh.size(i) for i in data)
+    ffn = cfg.d_ff % dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1) == 0
+    tokens = Shard(1) if batch else Replicate()
+    over = [i for i in data if mesh.size(i) > 1] if batch else []
+
+    def dispatch(x_, router):
+        m_, Bl, S_, D_ = x_.shape
+        Tl = Bl * S_
+        xt = x_.reshape(m_, Tl, D_)
+        probs, idx, gates = _route({"router": router}, cfg, xt)
+        flat_e = idx.reshape(m_, Tl * topk)  # token-major slots
+        onehot = _one_hot(flat_e, E).to(torch.int64)  # (m, S2, E)
+        before = sum_before(torch.sum(onehot, dim=1), mesh, over)  # (m, E): the earlier shards' slots
+        pos = torch.sum((torch.cumsum(onehot, dim=1) - onehot + before[:, None]) * onehot, dim=-1)
+        keep = pos < C
+        node = torch.arange(m_, device=x_.device).reshape(m_, 1)
+        rows = torch.where(keep, pos * N + node * E + flat_e, C * N)  # dropped slots: a spare row
+        slots = xt[:, :, None, :].expand(m_, Tl, topk, D_).reshape(-1, D_)
+        buf = torch.zeros((C * N + 1, D_), dtype=x_.dtype, device=x_.device).index_put((rows.reshape(-1),), slots)
+        picks = torch.sum(onehot.to(torch.float32), dim=1)
+        return buf[:C * N].reshape(C, N, D_), rows, gates, torch.sum(probs, dim=1), picks
+
+    sums = place(Partial() if batch else Replicate(), Replicate())
+    buf, rows, gates, probs_sum, picks_sum = local_map(
+        dispatch, out_placements=(sums, place(tokens, Replicate()), place(tokens, Replicate()), sums, sums),
+        in_placements=(place(tokens, Replicate()), place(Replicate(), Replicate())),
+        in_grad_placements=(place(tokens, Replicate()), sums),
+        device_mesh=mesh, redistribute_inputs=True)(x, p["router"])
+    # the buffer reduced onto its shards: the capacity's, else d_model's
+    on = Shard(0) if C % n_data == 0 else Shard(2) if D % n_data == 0 else Replicate()
+    a = buf.redistribute(mesh, place(on, Replicate()))
+    del buf
+    wg, wi, wo = (p[k].reshape(N, *p[k].shape[2:]) for k in ("wg", "wi", "wo"))
+    h = _silu(einsum("cnd,ndf->cnf", a, wg)) * einsum("cnd,ndf->cnf", a, wi)
+    del a
+    y = einsum("cnf,nfd->cnd", h, wo)
+    del h
+    part = Partial() if ffn else Replicate()
+    y = y.redistribute(mesh, place(Replicate(), part))
+
+    def combine(y_, rows_, gates_):
+        m_, Tl, _ = gates_.shape
+        kept = rows_ < C * N
+        gathered = y_.reshape(C * N, D)[torch.where(kept, rows_, 0).reshape(-1)].reshape(m_, Tl, topk, D)
+        gathered = torch.where(kept.reshape(m_, Tl, topk)[..., None], gathered, 0.0)  # a dropped slot reads zeros
+        out = torch.sum(gathered * gates_.to(gathered.dtype)[..., None], dim=2)
+        return out.reshape(m_, Tl // S, S, D)
+
+    out = local_map(combine, out_placements=place(tokens, part),
+                    in_placements=(place(Replicate(), part), place(tokens, Replicate()), place(tokens, Replicate())),
+                    in_grad_placements=(place(Partial() if batch else Replicate(), Replicate()),
+                                        place(tokens, Replicate()), place(tokens, part)),
+                    device_mesh=mesh, redistribute_inputs=True)(y, rows, gates)
+    return out, _aux_from_sums(cfg, probs_sum, picks_sum, T, 1.0)

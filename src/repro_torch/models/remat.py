@@ -152,6 +152,10 @@ class _Region(torch.autograd.Function):
         ctx.fn, ctx.spec, ctx.n_floats, ctx.dots = fn, spec, len(floats), box.policy == "dots"
         saved = output[box.n_out:]
         ctx.mark_non_differentiable(*saved)
+        # an output without a gradient (a saved product's, always) comes to
+        # the backward as None: autograd would fill it with zeros of the
+        # output's global shape, a whole plain tensor where it is a DTensor
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(*floats, *saved)
 
     @staticmethod

@@ -28,6 +28,13 @@ vocabulary) and `vocab_parallel_embedding` (the lookup in a table sharded
 on it) run on each device's shards and reduce across the shards with
 explicit collectives (`sum_across`, whose gradient is the identity, so
 no masked partial gradient ever meets DTensor's propagation).
+
+Where DTensor's own rules would gather a sharded dimension, these run on
+the shards with explicit collectives too: `softmax` (over a decode
+cache's slots), `rms_norm_on_shards` (a norm over a sharded last
+dimension) and `sum_before` (a cumulative sum's offset across the data
+shards, the MoE dispatch's global positions).  `idle_model_head` lays out
+an LM head whose vocabulary the model axis does not divide.
 """
 
 from __future__ import annotations
@@ -128,6 +135,29 @@ def cumsum(t: torch.Tensor, dim: int) -> torch.Tensor:
                      device_mesh=t.device_mesh)(t)
 
 
+def softmax(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.softmax(t, dim)``; a DTensor sharded on ``dim`` on each
+    device's shards, its max and its sum of exponentials reduced across
+    them (two all-reduces of one value a row), where DTensor's rule gathers
+    the dimension.  Without a gradient: a decode step's, over the cache's
+    slots."""
+    if not is_dtensor(t) or not shard_dims(t, dim):
+        return torch.softmax(t, dim=dim)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, dims = t.device_mesh, shard_dims(t, dim)
+    pl = [Replicate() if isinstance(p, Partial) else p for p in t.placements]
+
+    def local(x):
+        top = reduce_across(torch.amax(x, dim=dim, keepdim=True), "max", mesh, dims)
+        e = torch.exp(x - top)
+        return e / reduce_across(torch.sum(e, dim=dim, keepdim=True), "sum", mesh, dims)
+
+    return local_map(local, out_placements=pl, in_placements=(pl,), device_mesh=mesh,
+                     redistribute_inputs=True)(t)
+
+
 def pad_front(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     """``t`` with ``n`` zeros in front of dimension ``dim`` (``F.pad``); a
     DTensor's as a concatenation, since its pad fails to redistribute on
@@ -182,6 +212,24 @@ def reduce_across(t: torch.Tensor, op: str, mesh, dims: list) -> torch.Tensor:
     return t
 
 
+def sum_before(t: torch.Tensor, mesh, dims: list) -> torch.Tensor:
+    """The sum of ``t`` (a local value, no gradient) over the devices that
+    come before this one along the mesh dimensions ``dims`` (in
+    `shard_index`'s order): one all-gather a dimension (of more than one
+    device).  The offset of this device's shard in a cumulative sum over a
+    dimension sharded there."""
+    import torch.distributed._functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    every = t[None]
+    for i in reversed([i for i in dims if mesh.size(i) > 1]):
+        every = gather(every, 0, (mesh, i))
+        if isinstance(every, funcol.AsyncCollectiveTensor):
+            every = every.wait()
+    index = shard_index(mesh, [i for i in dims if mesh.size(i) > 1])[0]
+    return torch.sum(every[:index], dim=0)
+
+
 class _SumAcross(torch.autograd.Function):
     """`reduce_across` by sum, whose gradient is the incoming one: the sum
     is replicated, so each device's gradient is already the whole."""
@@ -197,6 +245,46 @@ class _SumAcross(torch.autograd.Function):
 
 def sum_across(t: torch.Tensor, mesh, dims: list) -> torch.Tensor:
     return _SumAcross.apply(t, mesh, dims) if dims else t
+
+
+class _PSum(torch.autograd.Function):
+    """`reduce_across` by sum where each device uses the sum in its own
+    way: the gradient is the sum of the devices' gradients."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return reduce_across(t, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_across(grad, "sum", ctx.mesh, ctx.dims), None, None
+
+
+def rms_norm_on_shards(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """`repro_torch.models.layers.rms_norm` of a DTensor x (m, ..., d)
+    sharded on d, on each device's shards: the sum of squares all-reduced
+    across d's shards (and its gradient so), where DTensor's rules gather x
+    in the backward pass.  ``scale`` (m, d)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, d = x.device_mesh, x.shape[-1]
+    dims = shard_dims(x, -1)
+    x_pl = list(x.placements)
+    s_pl = [Shard(1) if i in dims else Replicate() for i in range(mesh.ndim)]
+    s_grad = [Shard(1) if i in dims else Partial() if isinstance(p, Shard) else Replicate()
+              for i, p in enumerate(x_pl)]
+
+    def local(x_, s_):
+        xf = x_.to(torch.float32)
+        var = _PSum.apply(torch.sum(torch.square(xf), dim=-1, keepdim=True), mesh, dims) / d
+        out = xf * torch.rsqrt(var + eps)
+        s_ = s_.reshape(s_.shape[0], *([1] * (x_.dim() - 2)), s_.shape[-1])
+        return (out * s_.to(torch.float32)).to(x_.dtype)
+
+    return local_map(local, out_placements=x_pl, in_placements=(x_pl, s_pl), in_grad_placements=(x_pl, s_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(x, scale)
 
 
 class _VocabNLL(torch.autograd.Function):
@@ -282,6 +370,64 @@ def vocab_parallel_embedding(table: torch.Tensor, tokens: torch.Tensor, lookup) 
 
     return local_map(local, out_placements=out_pl, in_placements=(tab_pl, tok_pl),
                      in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh, redistribute_inputs=True)(table, tokens)
+
+
+def idle_model_dims(w: torch.Tensor) -> list:
+    """The "model" mesh dimensions (of more than one device) on which the
+    DTensor weight ``w`` is not sharded at all: an LM head whose vocabulary
+    the model axis does not divide (mamba2-2.7b's 50,280 on 16)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = w.device_mesh
+    return [i for i, n in enumerate(mesh.mesh_dim_names)
+            if n == "model" and mesh.size(i) > 1 and not isinstance(w.placements[i], Shard)]
+
+
+class _IdleModelHead(torch.autograd.Function):
+    """``bmm(x, w)`` (x (m, T, D), w (m, D, V)) whose weight gradient is
+    computed on the model axis' share of d_model: the reference's compiled
+    step gives the idle model axis that product (and no other), so each
+    device forms x[..., its D / n]^T dy, a Partial sum over the data axes."""
+
+    @staticmethod
+    def forward(ctx, x, w, dims):
+        ctx.save_for_backward(x, w)
+        ctx.dims = dims
+        return bmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from torch.distributed.tensor import Shard
+
+        x, w = ctx.saved_tensors
+        split = [Shard(2) if i in ctx.dims else p for i, p in enumerate(x.placements)]
+        dw = einsum("ntd,ntv->ndv", x.redistribute(x.device_mesh, split), dy)
+        return bmm(dy, w.transpose(1, 2)), dw, None
+
+
+def idle_model_head(x: torch.Tensor, w: torch.Tensor, serve: bool) -> torch.Tensor:
+    """The LM head's product x (m, T, D) @ w (m, D, V) on DTensors where the
+    model axis leaves the vocabulary whole (`idle_model_dims`), laid out as
+    the reference's compiled steps lay it out.  A train step (``serve``
+    false): the product as `bmm` (w gathered over the data axes), its
+    weight gradient on the model axis' share of d_model
+    (`_IdleModelHead`).  A serve step's few tokens: split on d_model as w's
+    rows are, over the data axes (w does not move), and, where the tokens
+    were sharded over them (gathered now), within them over the model axis
+    too; the logits, Partial sums, are then brought to x's batch
+    sharding."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = idle_model_dims(w)
+    if not serve:
+        return _IdleModelHead.apply(x, w, dims)
+    mesh = w.device_mesh
+    tokens = any(isinstance(p, Shard) and p.dim == 1 for p in x.placements)
+    split = [Shard(2) if isinstance(p, Shard) and p.dim == 1 or (tokens and i in dims) else Replicate()
+             for i, p in enumerate(w.placements)]
+    out = einsum("ntd,ndv->ntv", x.redistribute(mesh, split),
+                 w.redistribute(mesh, [Shard(1) if isinstance(p, Shard) else p for p in split]))
+    return out.redistribute(mesh, [p if isinstance(p, Shard) and p.dim == 1 else Replicate() for p in x.placements])
 
 
 def batch_positions(like: torch.Tensor, S: int) -> torch.Tensor:

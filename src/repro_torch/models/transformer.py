@@ -62,6 +62,7 @@ from repro_torch.models.layers import (
     chunked_cross_entropy,
     dense_init,
     embed_init,
+    head_linear,
     init_device,
     linear,
     mlp_apply,
@@ -278,7 +279,7 @@ def lm_head(params: dict, cfg) -> torch.Tensor:
 def head_logits(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     """Logits of final hidden states x (m, B, D): the head product in the
     model's dtype, cast to f32, soft-capped."""
-    return softcap(linear(x, lm_head(params, cfg)).to(torch.float32), cfg.logit_softcap)
+    return softcap(head_linear(x, lm_head(params, cfg), serve=True).to(torch.float32), cfg.logit_softcap)
 
 
 def _positions(B: int, S: int, device, like=None) -> torch.Tensor:

@@ -36,23 +36,16 @@ from repro_torch.transport import SimTransport
 
 from _torch_replay import JaxReplay
 from test_torch_async import (
-    GATE_CFG,
-    GATE_JT,
-    GATE_ROWS,
-    GATE_T,
-    GATE_TASK,
-    GATE_WIRE,
     GEO,
-    TIE,
     _assert_rows_match,
     _bundles,
     _close,
     _per_step,
-    _record_topk_margins,
     _round_metrics_close,
     _same_ledger,
     _same_schedule_metrics,
 )
+from test_torch_async_gate import GATE_CFG, GATE_JT, GATE_ROWS, GATE_T, GATE_TASK, GATE_WIRE, TIE, _record_topk_margins
 
 # tests/test_compiled_async.py's bundle, config and fabric
 BUNDLE = dict(m=4, n=80, p=12, c=3, h=0.5, seed=0)

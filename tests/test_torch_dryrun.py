@@ -6,7 +6,9 @@ reference's, and the ``"dots"`` recompute policy.
   ``status == "ok"``, and each one's argument and output bytes per device
   equal to the reference's local-shard sums under its in- and
   out-shardings (computed by the reference's own ``build_case`` in a
-  subprocess with 8 forced host devices);
+  subprocess with 8 forced host devices), the arguments those its step
+  reads, as jit keeps them (a Mamba stack's decode reads no position, an
+  audio decoder's no encoder);
 * per-device FLOPs within [global / chips, global] of a FlopCounterMode
   count of the unsharded step (on meta tensors); collectives issued on the
   2 x 4 mesh, none on a 1 x 1 mesh;
@@ -64,17 +66,27 @@ for k in spec["kinds"]:
 isl = lambda x: isinstance(x, jax.sharding.NamedSharding)
 
 
-def local(tree, sh):
-    per = jax.tree.map(lambda s, sub: sum(int(np.prod(s.shard_shape(l.shape))) * np.dtype(l.dtype).itemsize
-                                          for l in jax.tree.leaves(sub)), sh, tree, is_leaf=isl)
-    return int(sum(jax.tree.leaves(per)))
+def local(tree, sh, keep=None):
+    per = jax.tree.leaves(jax.tree.map(lambda s, sub: jax.tree.map(lambda _: s, sub), sh, tree, is_leaf=isl),
+                          is_leaf=isl)
+    sizes = [int(np.prod(s.shard_shape(l.shape))) * np.dtype(l.dtype).itemsize
+             for s, l in zip(per, jax.tree.leaves(tree))]
+    return int(sum(n for i, n in enumerate(sizes) if keep is None or keep[i]))
+
+
+def read(fn, args):
+    # whether the step reads each flattened argument: jit prunes the others from the compiled step's
+    jaxpr = jax.make_jaxpr(fn)(*args).jaxpr
+    used = {id(v) for e in jaxpr.eqns for v in e.invars} | {id(v) for v in jaxpr.outvars}
+    return [id(v) in used for v in jaxpr.invars]
 
 
 out = {}
 for arch in spec["archs"]:
     for k in spec["kinds"]:
         fn, args, in_sh, out_sh, cfg, shape = D.build_case(arch, k, mesh)
-        out[f"{arch}/{k}"] = {"arg": local(args, in_sh), "out": local(jax.eval_shape(fn, *args), out_sh)}
+        out[f"{arch}/{k}"] = {"arg": local(args, in_sh, read(fn, args)),
+                              "out": local(jax.eval_shape(fn, *args), out_sh)}
 print(json.dumps(out))
 """
 

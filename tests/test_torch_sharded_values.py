@@ -147,12 +147,21 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+MAMBA = dict(vocab_size=511, d_model=128)  # a vocabulary the model axis leaves whole
 TRAIN = [("qwen2-7b", dict(num_heads=6, num_kv_heads=2, head_dim=32), (1, 4), 4),
          ("qwen2-7b", dict(num_heads=6, num_kv_heads=2, head_dim=32), (2, 2), 4),
          ("qwen2-7b", dict(num_heads=8, num_kv_heads=2, head_dim=32), (1, 4), 4),
          ("qwen2-7b", dict(num_heads=8, num_kv_heads=2, head_dim=32), (4, 1), 2),
-         ("gemma2-27b", {}, (2, 2), 4)]
-DECODE = [("qwen2-7b", dict(num_heads=6, num_kv_heads=2, head_dim=32), (1, 4), 4), ("gemma2-27b", {}, (2, 2), 4)]
+         ("gemma2-27b", {}, (2, 2), 4),
+         ("mixtral-8x7b", {}, (2, 2), 4),
+         ("mixtral-8x7b", {}, (4, 1), 4),
+         ("mamba2-2.7b", MAMBA, (2, 2), 4),
+         ("jamba-1.5-large-398b", {}, (1, 4), 4)]
+DECODE = [("qwen2-7b", dict(num_heads=6, num_kv_heads=2, head_dim=32), (1, 4), 4), ("gemma2-27b", {}, (2, 2), 4),
+          ("qwen2-7b", dict(num_heads=8, num_kv_heads=2, head_dim=32), (4, 1), 1),
+          ("mixtral-8x7b", {}, (4, 1), 16),
+          ("mamba2-2.7b", MAMBA, (2, 2), 4),
+          ("jamba-1.5-large-398b", {}, (2, 2), 4)]
 RTOL = 1e-4
 ATOL = {"train": 1e-6, "decode": 2e-5}
 
@@ -233,7 +242,10 @@ if __name__ == "__main__":
 
 CASES = ["train/qwen2-7b/6x2/1x4/B4", "train/qwen2-7b/6x2/2x2/B4", "train/qwen2-7b/8x2/1x4/B4",
          "train/qwen2-7b/8x2/4x1/B2", "train/gemma2-27b/4x2/2x2/B4", "decode/qwen2-7b/6x2/1x4/B4",
-         "decode/gemma2-27b/4x2/2x2/B4"]
+         "decode/gemma2-27b/4x2/2x2/B4",
+         "train/mixtral-8x7b/4x2/2x2/B4", "train/mixtral-8x7b/4x2/4x1/B4", "train/mamba2-2.7b/0x0/2x2/B4",
+         "train/jamba-1.5-large-398b/4x2/1x4/B4", "decode/qwen2-7b/8x2/4x1/B1", "decode/mixtral-8x7b/4x2/4x1/B16",
+         "decode/mamba2-2.7b/0x0/2x2/B4", "decode/jamba-1.5-large-398b/4x2/2x2/B4"]
 
 
 @pytest.fixture(scope="module")
