@@ -3,6 +3,7 @@
 against its plain PyTorch version.
 
     python3 chip_smoke.py          # from the repository root; needs one card
+    python3 chip_smoke.py --only transport   # the build, phase 4's top-k run, then phase 11
     python3 chip_smoke.py --only archs   # the build, then phase 13 alone
     python3 chip_smoke.py --only steps   # the build, then phase 14 alone
     python3 chip_smoke.py --only examples   # the build, then phase 16 alone
@@ -90,6 +91,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    exchange's mixes (shift by shift, sum w (hat_j - hat_i)); kernel_quant on a
    torch.Generator, T = 1 (B4 40, the closed-form bytes); on m = 4, ring and
    star, dense and fused, and make_sharded_inner_loop, card against host.
+   The fused and dense rounds at this width and the four small ones are
+   metered: each round's collective bytes a device (what one rank receives
+   through the shifts and gathers, the reference's HLO count) equal to the
+   closed form device_collective_bytes (and card to host on the small
+   ones), the fused below the dense at this width, and each path's
+   roofline terms (launch.roofline.roofline_terms) with the card's name
+   and power limit.
    B2 and B3 (its tile entry against zeros().scatter_add_, its leaf entry
    onto a base against today's three calls: the tile, the slice and the
    add) are held bit for bit and timed at the exchange's stacked shapes with
@@ -100,8 +108,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    K = 5 through run(): kernel_topk, T = 3 (B1 bf16 2 x 4*K a round, the
    most survivors in a block, a profiled warm round, the peak memory),
    kernel_quant, T = 2 (B4 bf16), the wire bytes (B2), the fused exchange
-   at full width or its refusal past kpad, phi3-smoke fused against dense
-   bit for bit, and lm-test card against host round by round;
+   at full width (its round metered: collective bytes a device equal to the
+   closed form, printed beside the dense exchange's closed form and both
+   roofline terms), phi3-smoke fused against dense bit for bit (each
+   round's collective bytes the closed form), and lm-test card against
+   host round by round;
 13. the MoE, Mamba-2 and multimodal paths: C2DFB on mamba2-2.7b at its
    published width, 2 of 64 layers, its f32 a_log, d_skip and dt_bias
    beside bf16 leaves, with phase 12's traffic through run(): kernel_topk,
@@ -1947,10 +1958,28 @@ def _recording_meter(transport) -> list:
     return reports
 
 
-def _transport_run(dev, bundle, transport, cfg_kw: dict, T_: int, generator=None) -> dict:
+def collectives_report(tag: str, cost, closed: float, m: int, smi: str, note: str = "") -> dict:
+    """One device-transport path's round cost as the reference's bench_lm
+    reports it: ``collective_bytes`` a device (counted on the metered round
+    0, ``DeviceTransport.cost``) checked equal to the closed form
+    `device_collective_bytes`, and ``roofline_terms(flops, hbm_bytes,
+    collective_bytes, chips=m)``, printed with the card's name and power
+    limit.  Returns the bytes and the terms."""
+    from repro_torch.launch.roofline import roofline_terms
+
+    got = cost.collective_bytes
+    check(isinstance(got, float) and got == closed, f"{tag}: collective_bytes {got!r}, the closed form {closed!r}")
+    terms = roofline_terms(cost.flops, cost.hbm_bytes, got, chips=m)
+    print(f"[collectives] {tag}: collective_bytes {got!r} a device a round (closed form {closed!r}){note}; flops "
+          f"{cost.flops!r}, hbm_bytes {cost.hbm_bytes!r} a device; roofline_terms {terms}; {smi}")
+    return dict(collective_bytes=got, roofline=terms)
+
+
+def _transport_run(dev, bundle, transport, cfg_kw: dict, T_: int, generator=None, obs=None) -> dict:
     """``run(transport=)`` at TASK's width on the ring: the state, the
     metrics, the launch counts, each round's per-phase node bytes, the wall
-    seconds and the peak device memory above what was held before."""
+    seconds and the peak device memory above what was held before.  With
+    ``obs``, round 0 is metered (``transport.cost``)."""
     from repro_torch.core.c2dfb import C2DFBConfig, run
     from repro_torch.core.topology import ring
     from repro_torch.kernels import _build
@@ -1963,7 +1992,7 @@ def _transport_run(dev, bundle, transport, cfg_kw: dict, T_: int, generator=None
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     state, mets = run(bundle.problem, ring(TASK["m"]), C2DFBConfig(**cfg_kw), bundle.x0, bundle.y0, T=T_,
-                      generator=generator, device=dev, transport=transport)
+                      generator=generator, device=dev, transport=transport, obs=obs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return dict(state=state, mets=mets, counts=_build.launch_counts(), reports=reports, wall=wall,
@@ -2281,6 +2310,10 @@ def phase_transport(dev, bundle, main_mets) -> dict:
     Then kernel_quant on a torch.Generator, T = TRANSPORT_QUANT_T, per-leaf
     format: B4 launches 4*K*T, every round meters the closed form.
 
+    (a) and (b) are metered (obs): each round body's collective bytes a
+    device equal the closed form (about 392 MB fused against 717 MB dense
+    at this width), the fused below the dense, with their roofline terms.
+
     (c) The small config, card against host (phase_transport_small).
 
     (d), B2 and B3 timed at (a)'s stacked shapes, runs first in phase 3
@@ -2289,7 +2322,10 @@ def phase_transport(dev, bundle, main_mets) -> dict:
 
     Returns the launch counts of B1, B2 and B3 in (a) and of B4 in (b)."""
     from repro_torch.core.c2dfb import C2DFBConfig
+    from repro_torch.core.topology import ring
     from repro_torch.core.types import tree_leaves
+    from repro_torch.obs import MemorySink
+    from repro_torch.obs.compute import device_collective_bytes
     from repro_torch.transport import DeviceTransport
     from repro_torch.transport import device as D
 
@@ -2306,7 +2342,7 @@ def phase_transport(dev, bundle, main_mets) -> dict:
     D._pack_tree = counting
     fused_tr = DeviceTransport(fused=True, link="wan")
     try:
-        fa = _transport_run(dev, bundle, fused_tr, CFG, TRANSPORT_T)
+        fa = _transport_run(dev, bundle, fused_tr, CFG, TRANSPORT_T, obs=MemorySink())
     finally:
         D._pack_tree = pack
     _check_transport_run("[transport fused]", fa, CFG, TRANSPORT_T)
@@ -2319,7 +2355,8 @@ def phase_transport(dev, bundle, main_mets) -> dict:
           f"k {round(CFG['comp_ratio'] * block)})")
     profile_device_round(bundle, fa["state"], fused_tr)
 
-    fb = _transport_run(dev, bundle, DeviceTransport(link="wan", chunk=1 << 16), CFG, TRANSPORT_T)
+    dense_tr = DeviceTransport(link="wan", chunk=1 << 16)
+    fb = _transport_run(dev, bundle, dense_tr, CFG, TRANSPORT_T, obs=MemorySink())
     _check_transport_run("[transport dense]", fb, CFG, TRANSPORT_T)
     check(fb["counts"]["block_topk"] == n and fb["counts"]["pack_sparse_blocks"] == 0
           and fb["counts"]["unpack_sparse_blocks"] == 0, f"the dense run launched {fb['counts']}")
@@ -2337,6 +2374,14 @@ def phase_transport(dev, bundle, main_mets) -> dict:
           f"phases x {TASK['m']} node bytes equal); free runs' hypergrad_norm gap to run(): {gap.tolist()} "
           f"(run() {main_mets['hypergrad_norm'][:TRANSPORT_T].tolist()}), held round by round below")
     del fb
+    smi, topo = nvidia_smi(), ring(TASK["m"])
+    coll = {name: collectives_report(f"paper width {name}", tr.cost, device_collective_bytes(
+        topo, C2DFBConfig(**CFG), bundle.x0, bundle.y0, fused=tr.fused), TASK["m"], smi)["collective_bytes"]
+        for name, tr in (("fused", fused_tr), ("dense", dense_tr))}
+    check(coll["fused"] < coll["dense"], f"the fused exchange moves {coll['fused']!r} collective bytes, the dense "
+          f"{coll['dense']!r}")
+    print(f"[collectives] paper width: the fused exchange moves {coll['fused'] / coll['dense']:.4f} of the dense "
+          f"one's collective bytes")
     fused_on_run_states(dev, bundle, main_mets)
 
     fq = _transport_run(dev, bundle, DeviceTransport(link="wan"), CFG_QUANT, TRANSPORT_QUANT_T,
@@ -2358,7 +2403,8 @@ def phase_transport_small(dev) -> None:
     neighbour-shift engine) and star (the all-gather engine), dense and
     fused, kernel_topk, with obs; then make_sharded_inner_loop on a
     quadratic.  States within TOL; wire bytes, measured bytes, every
-    node's bytes and the rows' compute_flops / hbm_bytes equal."""
+    node's bytes, the rows' compute_flops / hbm_bytes and the round's
+    collective bytes equal (those also to the closed form)."""
     from repro_torch.core.c2dfb import C2DFBConfig, run
     from repro_torch.core.compression import KernelBlockTopK
     from repro_torch.core.distributed import make_sharded_inner_loop
@@ -2367,8 +2413,10 @@ def phase_transport_small(dev) -> None:
     from repro_torch.core.types import tree_leaves
     from repro_torch.data.bilevel_tasks import coefficient_tuning_task
     from repro_torch.obs import MemorySink
+    from repro_torch.obs.compute import device_collective_bytes
     from repro_torch.transport import DeviceTransport, mesh_for_nodes
 
+    smi = nvidia_smi()
     cfg = C2DFBConfig(K=3, compressor="kernel_topk", comp_ratio=0.2, comp_block=128)
     for name in ("ring", "star"):
         topo = make_topology(name, 4)
@@ -2377,11 +2425,11 @@ def phase_transport_small(dev) -> None:
             for d in ("cpu", dev):
                 b = coefficient_tuning_task(m=4, n=200, p=64, c=4, seed=0, device=d)
                 sink = MemorySink()
-                st, mets = run(b.problem, topo, cfg, b.x0, b.y0, T=3, device=d, obs=sink,
-                               transport=DeviceTransport(fused=fused, link="wan"))
+                tr = DeviceTransport(fused=fused, link="wan")
+                st, mets = run(b.problem, topo, cfg, b.x0, b.y0, T=3, device=d, obs=sink, transport=tr)
                 out[d] = (st, mets, [(r["compute_flops"], r["hbm_bytes"]) for r in sink.rows(kind="round")],
-                          [r["node_bytes"] for r in sink.rows(kind="node")])
-            (sc, mc, cc, nc), (sg, mg, cg, ng) = out["cpu"], out[dev]
+                          [r["node_bytes"] for r in sink.rows(kind="node")], tr.cost)
+            (sc, mc, cc, nc, kc), (sg, mg, cg, ng, kg) = out["cpu"], out[dev]
             tag = f"small {name} {'fused' if fused else 'dense'}"
             for la, lb in zip(tree_leaves(sc.x) + tree_leaves(sc.inner_y.d) + tree_leaves(sc.inner_z.s_hat),
                               tree_leaves(sg.x) + tree_leaves(sg.inner_y.d) + tree_leaves(sg.inner_z.s_hat)):
@@ -2389,8 +2437,12 @@ def phase_transport_small(dev) -> None:
             for k in ("wire_bytes", "measured_bytes", "sim_seconds"):
                 check(np.array_equal(mc[k], mg[k]), f"{tag}: {k} differs between card and host")
             check(nc == ng and cc == cg, f"{tag}: node bytes or (compute_flops, hbm_bytes) differ: {cg[0]}, {cc[0]}")
+            check(kg.collective_bytes == kc.collective_bytes, f"{tag}: collective_bytes card {kg.collective_bytes!r}, "
+                  f"host {kc.collective_bytes!r}")
             print(f"[small transport] {tag}: card and host agree; wire_bytes {mg['wire_bytes'].tolist()}, "
-                  f"measured_bytes {mg['measured_bytes'].tolist()}, (compute_flops, hbm_bytes) {cg[0]}")
+                  f"measured_bytes {mg['measured_bytes'].tolist()}, (compute_flops, hbm_bytes) {cg[0]}, "
+                  f"collective_bytes {kg.collective_bytes!r} (host {kc.collective_bytes!r})")
+            collectives_report(tag, kg, device_collective_bytes(topo, cfg, sg.x, sg.inner_y.d, fused=fused), 4, smi)
 
     m, d_ = 4, 256
     rng = np.random.default_rng(0)
@@ -2476,7 +2528,7 @@ def survivors_by_leaf(block: int):
         C.block_topk_nodes = orig
 
 
-def _lm_run(problem, topo, cfg, x0, y0, T_, generator=None, transport=None):
+def _lm_run(problem, topo, cfg, x0, y0, T_, generator=None, transport=None, obs=None):
     from repro_torch.core.c2dfb import run
     from repro_torch.kernels import _build
 
@@ -2486,7 +2538,7 @@ def _lm_run(problem, topo, cfg, x0, y0, T_, generator=None, transport=None):
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     dev = next(iter(problem.data_f.values())).device
-    state, mets = run(problem, topo, cfg, x0, y0, T=T_, generator=generator, device=dev, transport=transport)
+    state, mets = run(problem, topo, cfg, x0, y0, T=T_, generator=generator, device=dev, transport=transport, obs=obs)
     torch.cuda.synchronize()
     return state, mets, _build.launch_counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
@@ -2789,8 +2841,12 @@ def lm_fused_full(problem, topo, cfg, x0, y0, kpad: int) -> dict:
     each round's wire bytes the degree sum of its node bytes; the
     survivors the exchange dropped past kpad (as the reference's pack
     drops them), counted from the residuals, and every record the plain
-    pack's."""
+    pack's.  The round is metered (obs): its collective bytes a device equal
+    the closed form, printed with the dense exchange's closed form at this
+    width (not run here) and both roofline terms."""
     from repro_torch.core.types import tree_leaves
+    from repro_torch.obs import MemorySink
+    from repro_torch.obs.compute import device_collective_bytes
     from repro_torch.transport import DeviceTransport
 
     with unpack_bases() as bases, dropped_survivors() as seen:
@@ -2798,7 +2854,8 @@ def lm_fused_full(problem, topo, cfg, x0, y0, kpad: int) -> dict:
         # 130 s host meter); phi3-smoke's fused run below and phase 11 verify every message
         transport = DeviceTransport(fused=True, verify=False)
         reports = _recording_meter(transport)
-        state, mets, counts, wall, peak = _lm_run(problem, topo, cfg, x0, y0, 1, transport=transport)
+        state, mets, counts, wall, peak = _lm_run(problem, topo, cfg, x0, y0, 1, transport=transport,
+                                                  obs=MemorySink())
     n = 2 * 4 * cfg.K
     print(f"[lm fused] 1 round in {wall!r} s (body {float(mets['wall_seconds'][0])!r} s, meter "
           f"{float(mets['meter_seconds'][0])!r} s), launches {counts}, B3 by base dtype {bases}, peak {peak} bytes, "
@@ -2813,6 +2870,16 @@ def lm_fused_full(problem, topo, cfg, x0, y0, kpad: int) -> dict:
     deg = [len(nb) for nb in topo.neighbors]
     check(sum(d * b for v in reports[0].values() for d, b in zip(deg, v)) == int(mets["wire_bytes"][0]),
           "the fused run's wire bytes are not the degree sum of its node bytes")
+    smi = nvidia_smi()
+    fused = collectives_report(f"{LM_ARCH} full width fused", transport.cost,
+                               device_collective_bytes(topo, cfg, x0, y0, fused=True), topo.m, smi)
+    # the dense exchange at this width: its closed form, beside the fused round's flops and hbm_bytes (the dense
+    # round counts the same products: B2 and B3 multiply nothing)
+    closed = device_collective_bytes(topo, cfg, x0, y0, fused=False)
+    dense = collectives_report(f"{LM_ARCH} full width dense", dataclasses.replace(transport.cost, collective_bytes=closed),
+                               closed, topo.m, smi, note=", the closed form alone: no dense round runs at this width")
+    print(f"[collectives] {LM_ARCH} full width: the fused exchange moves "
+          f"{fused['collective_bytes'] / dense['collective_bytes']:.4f} of the dense one's collective bytes")
     return dict(pack_sparse_blocks=counts["pack_sparse_blocks"], unpack_sparse_blocks=counts["unpack_sparse_blocks"],
                 dropped_survivors=seen["dropped"])
 
@@ -2826,20 +2893,26 @@ def lm_fused_smoke(dev) -> dict:
     from repro_torch.async_gossip.compiled import _tensors
     from repro_torch.configs import get_config
     from repro_torch.core.topology import ring
+    from repro_torch.obs import MemorySink
+    from repro_torch.obs.compute import device_collective_bytes
     from repro_torch.transport import DeviceTransport
 
     cfg = get_config(LM_ARCH, smoke=True)
     problem, x0, y0 = lm_problem(cfg, LM_M, LM_B, LM_S, dev)
     ccfg = lm_c2dfb("kernel_topk")
+    smi = nvidia_smi()
     runs = {}
     for fused in (True, False):
         tr = DeviceTransport(fused=fused, chunk=1 << 16)
         reports = _recording_meter(tr)
         with unpack_bases() as bases:
-            state, mets, counts, wall, _ = _lm_run(problem, ring(LM_M), ccfg, x0, y0, 2, transport=tr)
+            state, mets, counts, wall, _ = _lm_run(problem, ring(LM_M), ccfg, x0, y0, 2, transport=tr,
+                                                   obs=MemorySink())
         runs[fused] = (state, mets, reports, counts, bases)
         print(f"[lm smoke] {cfg.name} {'fused' if fused else 'dense'}: 2 rounds in {wall!r} s, launches {counts}, "
               f"B3 by base dtype {bases}")
+        collectives_report(f"{cfg.name} {'fused' if fused else 'dense'}", tr.cost,
+                           device_collective_bytes(ring(LM_M), ccfg, x0, y0, fused=fused), LM_M, smi)
     (sf, mf, rf, cf, bf), (sd, md, rd, _, bd) = runs[True], runs[False]
     n = 2 * 2 * 4 * ccfg.K
     check(cf["pack_sparse_blocks"] == n and cf["unpack_sparse_blocks"] == 3 * n and cf["block_topk_bf16"] == n
@@ -3995,16 +4068,20 @@ def _to(tree, dev):
 
 
 def run_only(dev, only: list) -> int:
-    """``--only c4,lm,archs,steps,plan,examples``: the named checks alone,
-    in that order, after the build (for working on one of them): "c4" phase
-    4's kernel_topk run and phase 11's fused round on its states, "lm" phase
-    12, "archs" phase 13, "steps" phase 14, "plan" phase 15, "examples"
-    phase 16.  No result lines."""
+    """``--only c4,transport,lm,archs,steps,plan,examples``: the named checks
+    alone, in that order, after the build (for working on one of them): "c4"
+    phase 4's kernel_topk run and phase 11's fused round on its states,
+    "transport" phase 4's kernel_topk run and phase 11, "lm" phase 12,
+    "archs" phase 13, "steps" phase 14, "plan" phase 15, "examples" phase
+    16.  No result lines."""
     for name in only:  # in the order given
-        if name == "c4":
+        if name in ("c4", "transport"):
             bundle = build_task(dev)
             *_, main_mets = phase_main_path(dev, bundle, CFG, "block_topk")
-            fused_on_run_states(dev, bundle, main_mets)
+            if name == "c4":
+                fused_on_run_states(dev, bundle, main_mets)
+            else:
+                print(f"[only] phase 11: {phase_transport(dev, bundle, main_mets)}")
             del bundle
         elif name == "lm":
             print(f"[only] phase 12: {phase_lm(dev)}")
@@ -4017,7 +4094,7 @@ def run_only(dev, only: list) -> int:
         elif name == "examples":
             print(f"[only] phase 16: {phase_examples(dev, nvidia_smi())}")
         else:
-            fail(f"--only takes c4, lm, archs, steps, plan and examples, not {name!r}")
+            fail(f"--only takes c4, transport, lm, archs, steps, plan and examples, not {name!r}")
     print(f"[only] {only} passed")
     return 0
 

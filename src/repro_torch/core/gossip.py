@@ -15,6 +15,12 @@ Two interchangeable implementations of the consensus operator
   is the same for every rank, so one stacked table serves them all, and
   rank r mixes with its row of W - I against it.
 
+Each exchange reports what one rank receives to the open round-cost
+counters (`repro_torch.obs.compute.record_collective`), under the
+reference's collective kind: a shift (`shift_tree`) one rank's slice of
+each leaf, a gather (`gather_tree`) the m slices.  The counters only
+observe.
+
 Every engine mixes in f32 and emits at the leaf's dtype.  (The reference's
 ``mix_delta_ppermute`` accumulates at the leaf's dtype, its device
 transport in f32; the two agree for f32 leaves.)
@@ -30,6 +36,7 @@ import torch
 
 from repro_torch.core.topology import Topology
 from repro_torch.core.types import Tree, tree_leaves, tree_map
+from repro_torch.obs.compute import record_collective
 
 
 def w_minus_i(W: torch.Tensor) -> torch.Tensor:
@@ -68,8 +75,18 @@ def shift_ranks(v: torch.Tensor, shift: int) -> torch.Tensor:
 
 
 def shift_tree(tree: Tree, shift: int) -> Tree:
-    """`shift_ranks` on every leaf of a node-stacked tree."""
+    """`shift_ranks` on every leaf of a node-stacked tree: the reference's
+    collective permute, one rank's slice of each leaf a rank."""
+    record_collective("collective-permute", tree_leaves(tree))
     return tree_map(lambda v: shift_ranks(v, shift), tree)
+
+
+def gather_tree(tree: Tree) -> Tree:
+    """What every rank holds after gathering a node-stacked tree: the
+    stacked tree itself, the same table for every rank (the reference's
+    all-gather, the m slices of each leaf a rank)."""
+    record_collective("all-gather", tree_leaves(tree))
+    return tree
 
 
 def rows_against_table(W_minus_I: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -117,7 +134,7 @@ def mix_delta_allgather(topo: Topology, x: Tree) -> Tree:
     """General-graph fallback: every rank gathers every slice and reduces
     with its row of W - I (`mix_gathered`)."""
     W = torch.as_tensor(topo.W, dtype=torch.float32, device=tree_leaves(x)[0].device)
-    return mix_gathered(w_minus_i(W), x, x)
+    return mix_gathered(w_minus_i(W), gather_tree(x), x)
 
 
 def mix_delta_shard(topo: Topology, x: Tree) -> Tree:

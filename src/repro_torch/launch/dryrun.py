@@ -26,17 +26,20 @@ The record keeps the reference's keys where they mean the same thing:
 and ``hlo_bytes`` (per device), ``collectives``, ``model_flops``,
 ``model_flops_per_chip``, ``model_flops_ratio``, ``roofline``, ``params``.
 XLA's body-once keys (``xla_cost_*``, ``flops_trip_ratio``,
-``flops_undercounted``) have no counterpart: the port's loops over layers
-and chunks run eagerly, so every iteration is counted, which is why the
-reference's ``launch/hlo_cost.py`` (a trip-count-aware HLO walk) is not
-ported.  Argument bytes are the local-shard sums of the arguments that
-the step reads (an operator other than a view takes them in, or they are
-outputs), as jit prunes the rest: an SSM stack's decode position, an audio
-model's encoder at decode.  The optimizer's step counter, a Python integer
-here, counts as the reference's int32 scalar; so does decode's position
-where an attention layer writes its cache at it.  Output bytes are those
-of the outputs under the reference's out-shardings.  A case that raises is
-recorded as ``status: "error"`` with its traceback.
+``flops_undercounted``) are not kept: the port's loops over layers and
+chunks run eagerly, so every iteration is counted, and nothing is counted
+once a body. The reference's ``launch/hlo_cost.py`` (a trip-count-aware HLO
+walk) is not ported: its two jobs are this dry run's counts and, for a round
+body, `repro_torch.obs.compute.round_cost` (FLOPs, dot bytes, and the bytes
+of the round's collectives one device receives, counted at the exchanges by
+`repro_torch.obs.compute.Collectives`). Argument bytes are the local-shard
+sums of the arguments that the step reads (an operator other than a view
+takes them in, or they are outputs), as jit prunes the rest: an SSM stack's
+decode position, an audio model's encoder at decode. The optimizer's step
+counter, a Python integer here, counts as the reference's int32 scalar; so
+does decode's position where an attention layer writes its cache at it.
+Output bytes are those of the outputs under the reference's out-shardings. A
+case that raises is recorded as ``status: "error"`` with its traceback.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x7b \\

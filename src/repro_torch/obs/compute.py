@@ -14,12 +14,13 @@ Three layers, as in the reference:
    `check_structure` pins the two views to each other: a kind the formula
    says is zero must have zero counted calls, a nonzero kind at least one.
 
-2. **FLOPs and dot bytes of one round.**  `round_cost` runs a run's round
-   0 under ``torch.utils.flop_counter.FlopCounterMode`` and counts its
-   FLOPs (matrix products, as PyTorch's counter sees them), and beside it
-   `DotBytes` counts ``hbm_bytes``: the operand and output bytes of every
-   matrix product, the reference's definition
-   (``repro.launch.hlo_cost``: lhs + rhs + out bytes of every dot).  The
+2. **FLOPs, dot bytes and collective bytes of one round.**  `round_cost`
+   runs a run's round 0 under ``torch.utils.flop_counter.FlopCounterMode``
+   and counts its FLOPs (matrix products, as PyTorch's counter sees them),
+   and beside it `DotBytes` counts ``hbm_bytes``: the operand and output
+   bytes of every matrix product, the reference's definition
+   (``repro.launch.hlo_cost``: lhs + rhs + out bytes of every dot), and
+   `Collectives` counts ``collective_bytes``.  The
    reference walks the compiled HLO of a round that XLA has rid of dead
    code and loop-invariant work; the port's oracles do the same to their
    traced gradients (`repro_torch.core.oracle_graph`), so both fields
@@ -28,8 +29,17 @@ Three layers, as in the reference:
    reference's, the recompute of its checkpointed regions included
    (`repro_torch.models.remat`); a round's is one y-gradient of g and its
    backbone forward below the reference's, whose XLA round places that
-   work once more (ROADMAP §C).  ``collective_bytes`` and ``compile_seconds``
-   have no counterpart here and stay None.  Where the reference's round
+   work once more (ROADMAP §C).  ``collective_bytes`` is the reference's
+   output bytes of every collective of one mesh device's module, through
+   every loop iteration: the port's exchange sites (the device transport's
+   neighbour shifts and gathers, `repro_torch.core.gossip`) report what
+   one rank receives, by the reference's collective kinds
+   (`record_collective`), and a body that exchanges nothing counts 0.0, as
+   the reference's synchronous, async and baseline bodies do.  With this
+   counter and the dry run's `LocalCost` / `roofline.CollectiveBytes`, the
+   reference's ``launch/hlo_cost.py`` has no job left in the port, which
+   walks no compiled module.  ``compile_seconds`` stays None: the port's
+   rounds run eagerly and compile nothing.  Where the reference's round
    body is a ``lax.cond`` (the async engine's zero-age fast path), XLA
    adds up both branches; the port's round 0 runs one, and `meta_cost`
    counts the other on the meta device, where nothing executes.
@@ -138,6 +148,39 @@ def oracle_calls_for(alg: str, cfg, m: int = 1, rounds: int = 1) -> dict[str, in
     return {k: v * int(m) * int(rounds) for k, v in fn(cfg).items()}
 
 
+def device_collective_bytes(topo, cfg, x, y, fused: bool = False) -> float:
+    """The closed form of one rank's ``collective_bytes`` in one round of the
+    device transport (`repro_torch.transport.make_device_round`) on the
+    node-stacked ``x`` and ``y`` (leaves (m, ...), each at its dtype):
+
+    * the outer exchange of x and s_x, dense;
+    * the setup exchange of the inner loops' two reference points (d_hat and
+      s_hat, of y's leaves) at the start of each of the two loops, dense;
+    * K steps of each loop, two residuals a step: dense leaves, or with
+      ``fused`` the packed records, nb * kpad * 8 bytes a leaf (f32 values
+      and int32 lanes, nb blocks of the compressor's block).
+
+    A neighbour-shift topology moves each item once a schedule shift; an
+    all-gather moves the m slices of each.  This is what the counter gives on
+    the executed round (`Collectives`), written out for the sizes where no
+    round is run."""
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.transport.device import fused_pack_spec
+
+    m = topo.m
+
+    def rank_bytes(tree):
+        return sum(v.numel() // m * v.element_size() for v in tree_leaves(tree))
+
+    message = rank_bytes(y)
+    if fused:
+        block, kpad = fused_pack_spec(cfg.make_compressor())
+        message = sum(-(-(v.numel() // m) // block) * kpad * 8 for v in tree_leaves(y))
+    per_copy = 2 * rank_bytes(x) + 2 * 2 * rank_bytes(y) + 2 * int(cfg.K) * 2 * message
+    copies = len(topo.ppermute_schedule) if topo.ppermute_schedule is not None else m
+    return float(copies * per_copy)
+
+
 def structure_consistent(expected: dict[str, int], sites: dict[str, int]) -> bool:
     """Do counted oracle calls agree with a closed-form count's STRUCTURE?
     A kind the formula makes zero must have zero calls (the
@@ -197,23 +240,72 @@ class DotBytes(TorchDispatchMode):
         return out
 
 
+#: the open `Collectives` counters: every exchange site reports to all of them
+_COLLECTIVE_COUNTERS: list = []
+
+#: the reference's collective kinds that the port's exchanges stand for
+COLLECTIVE_KINDS = ("collective-permute", "all-gather")
+
+
+def record_collective(kind: str, leaves: list) -> None:
+    """An exchange of the node-stacked ``leaves`` (each (m, ...), rank r's
+    slice its row r), reported to the open `Collectives` counters as what one
+    rank receives, at each leaf's dtype: a "collective-permute" (a neighbour
+    shift) one rank's slice of each leaf, an "all-gather" the m slices of
+    each.  The exchange itself is not touched."""
+    if not _COLLECTIVE_COUNTERS:
+        return
+    if kind not in COLLECTIVE_KINDS:
+        raise ValueError(f"unknown collective kind {kind!r}; have {COLLECTIVE_KINDS}")
+    for v in leaves:
+        key, n = (kind, v.dtype), v.numel() if kind == "all-gather" else v.numel() // v.shape[0]
+        for counter in _COLLECTIVE_COUNTERS:
+            counter.elements[key] = counter.elements.get(key, 0) + n
+
+
+class Collectives:
+    """Counts, while open, the elements that one rank receives through the
+    exchanges of a round body, by (collective kind, dtype) in ``elements``;
+    ``bytes`` is their size at their dtypes.  The reference's counterpart is
+    ``repro.launch.hlo_cost``'s collective bytes: the output bytes of every
+    collective of one mesh device's module, through every loop iteration.
+    Counters nest: an exchange reports to every open one."""
+
+    def __init__(self):
+        self.elements: dict[tuple[str, torch.dtype], int] = {}
+
+    @property
+    def bytes(self) -> int:
+        return sum(n * dtype.itemsize for (_, dtype), n in self.elements.items())
+
+    def __enter__(self) -> "Collectives":
+        _COLLECTIVE_COUNTERS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _COLLECTIVE_COUNTERS.remove(self)
+
+
 @dataclasses.dataclass(frozen=True)
 class RoundCost:
     """One round body's cost: ``flops`` of the whole node-stacked body (all
-    m nodes) as ``FlopCounterMode`` counts them and ``hbm_bytes``, the
-    operand and output bytes of its matrix products (`DotBytes`); the
-    reference's other XLA quantities have no counterpart here and are
-    None."""
+    m nodes) as ``FlopCounterMode`` counts them, ``hbm_bytes``, the operand
+    and output bytes of its matrix products (`DotBytes`), and
+    ``collective_bytes``, what one rank receives through its exchanges
+    (`Collectives`; 0.0 for a body that exchanges nothing).
+    ``compile_seconds`` is None: the port's rounds run eagerly and compile
+    nothing."""
 
     flops: float
     hbm_bytes: float | None = None
-    collective_bytes: float | None = None
+    collective_bytes: float = 0.0
     compile_seconds: float | None = None
 
     def plus(self, other: "RoundCost") -> "RoundCost":
         """The cost of a body holding both bodies' work: how XLA counts a
         ``lax.cond``, whose two branches it adds up."""
-        return RoundCost(flops=self.flops + other.flops, hbm_bytes=self.hbm_bytes + other.hbm_bytes)
+        return RoundCost(flops=self.flops + other.flops, hbm_bytes=self.hbm_bytes + other.hbm_bytes,
+                         collective_bytes=self.collective_bytes + other.collective_bytes)
 
 
 def reset_cost_cache() -> None:
@@ -228,9 +320,10 @@ def round_cost(
     expected_oracles: dict[str, int] | None = None,
     label: str = "round",
 ):
-    """Run ``fn(*args)`` once under ``FlopCounterMode`` and `DotBytes` and
-    return its result with the `RoundCost` of that call, after checking the
-    oracle calls it made against ``expected_oracles`` (`check_structure`).
+    """Run ``fn(*args)`` once under ``FlopCounterMode``, `DotBytes` and
+    `Collectives` and return its result with the `RoundCost` of that call,
+    after checking the oracle calls it made against ``expected_oracles``
+    (`check_structure`).
 
     The reference lowers a round without running it; the port counts a
     round it runs anyway (a run's round 0).  The counters only observe the
@@ -239,11 +332,12 @@ def round_cost(
     from torch.utils.flop_counter import FlopCounterMode
 
     before = oracle_trace_counts()
-    with FlopCounterMode(display=False) as counter, DotBytes() as dots:
+    with FlopCounterMode(display=False) as counter, DotBytes() as dots, Collectives() as coll:
         out = fn(*args)
     if expected_oracles is not None:
         check_structure(label, expected_oracles, oracle_site_delta(before))
-    return out, RoundCost(flops=float(counter.get_total_flops()), hbm_bytes=float(dots.bytes))
+    return out, RoundCost(flops=float(counter.get_total_flops()), hbm_bytes=float(dots.bytes),
+                          collective_bytes=float(coll.bytes))
 
 
 class MetaSource:
@@ -287,12 +381,13 @@ def meta_cost(fn, *args) -> RoundCost:
 
     saved = oracle_trace_counts()
     try:
-        with FlopCounterMode(display=False) as counter, DotBytes() as dots:
+        with FlopCounterMode(display=False) as counter, DotBytes() as dots, Collectives() as coll:
             fn(*to_meta(args))
     finally:
         _ORACLE_SITES.clear()
         _ORACLE_SITES.update(saved)
-    return RoundCost(flops=float(counter.get_total_flops()), hbm_bytes=float(dots.bytes))
+    return RoundCost(flops=float(counter.get_total_flops()), hbm_bytes=float(dots.bytes),
+                     collective_bytes=float(coll.bytes))
 
 
 def memory_peak_bytes(device=None) -> int | None:

@@ -26,7 +26,10 @@ exchanges and the dense x / s_x outer broadcasts.  With ``fused=True``
 leaf), the shifts / gather move the records, and every receiver, and the
 sender for its own reference, unpacks them straight into the leaf, added to
 the copy or reference it updates (B3's leaf entry, one launch over every
-rank's records).
+rank's records).  Every shift and gather reports what one rank receives to
+the round-cost counters (`repro_torch.core.gossip.shift_tree` /
+`gather_tree`), so a metered round's ``collective_bytes`` is the
+reference's per-device count of its collectives.
 
 Wire truth: after each round every executed payload makes the
 `repro_torch.net.wire` encode -> decode round trip per node on the host
@@ -41,8 +44,9 @@ simulator within f32 tolerance.  The compressors are the simulator's own
 stacked calls (`inner_loop.inner_transmit`), so a stochastic compressor
 draws exactly what the simulator draws; the only difference is the order
 of the mixing sums.  Copies are rebuilt from the current references at
-round start (a setup exchange, not charged: a round's wire accounting
-counts the protocol's 2 dense outer + 4K compressed inner messages).
+round start (a setup exchange, not charged to ``wire_bytes``: a round's wire
+accounting counts the protocol's 2 dense outer + 4K compressed inner
+messages; ``collective_bytes`` counts it, as the reference's HLO does).
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ from repro_torch import resolve_device
 from repro_torch.core import compression as C
 from repro_torch.core.bilevel_problem import BilevelProblem
 from repro_torch.core.compression import Compressor
-from repro_torch.core.gossip import mix_delta_shard, mix_gathered, mix_received, shift_tree, w_minus_i
+from repro_torch.core.gossip import gather_tree, mix_delta_shard, mix_gathered, mix_received, shift_tree, w_minus_i
 from repro_torch.core.inner_loop import InnerState, inner_transmit, refresh_tracker
 from repro_torch.core.topology import Topology
 from repro_torch.core.types import Tree, tree_leaves, tree_map, tree_unflatten
@@ -240,18 +244,19 @@ class _AllGatherGossiper:
         self.W_minus_I = w_minus_i(torch.as_tensor(topo.W, dtype=torch.float32, device=device))
 
     def init(self, value: Tree) -> Tree:
-        return value
+        return gather_tree(value)
 
     def mix(self, table: Tree, own: Tree) -> Tree:
         return mix_gathered(self.W_minus_I, table, own)
 
     def push(self, table: Tree, q_own: Tree) -> Tree:
-        return tree_map(torch.add, table, q_own)
+        return tree_map(torch.add, table, gather_tree(q_own))
 
     def push_packed(self, table: Tree, packed, block: int) -> Tree:
         """Fused push: the gather moves packed (vals, idx) records; the
         (m, nb, kpad) record table is unpacked onto the table in one launch."""
-        return _unpack_onto(*packed, table, block)
+        vals_t, idx_t = packed
+        return _unpack_onto(gather_tree(vals_t), gather_tree(idx_t), table, block)
 
 
 def _gossiper(topo: Topology, device):
@@ -425,6 +430,11 @@ class DeviceTransport(Transport):
                  (`wire.encode_tree_chunked`); executed bytes then equal
                  `wire.measure_tree_bytes_chunked`.  None keeps the per-leaf
                  format of `wire.measure_tree_bytes`.
+
+    After a run with ``obs=``, ``cost`` holds the `RoundCost` of its round
+    body, counted on round 0: one rank's ``flops``, ``hbm_bytes`` and
+    ``collective_bytes`` (what the reference's bench reads from its
+    round-cost memo).  None before such a run.
     """
 
     def __init__(
@@ -458,6 +468,7 @@ class DeviceTransport(Transport):
         self._seed = seed
         self._trace = trace
         self.fabric: NetworkFabric | None = None
+        self.cost = None
 
     # ------------------------------------------------------------------
     def bind(self, topo: Topology, device: str | torch.device | None = None) -> "DeviceTransport":

@@ -160,14 +160,17 @@ def run_c2dfb_transport(
             # the executed round body's cost, counted on round 0 itself.  The
             # reference lowers one SPMD module for the nodes resident on ONE
             # mesh device (one node a device); the port's mesh holds every
-            # rank on one device, so the rows carry one rank's share.
+            # rank on one device, so the rows carry one rank's share of the
+            # FLOPs and dot bytes.  The exchanges report one rank's
+            # collective bytes already: not divided.
             with obs.span("cost_analysis", engine="transport-device"):
                 out, fleet = round_cost(
                     round_fn, *parts, generator,
                     expected_oracles=c2dfb_oracle_calls(cfg),
                     label="c2dfb/device-fused" if fused else "c2dfb/device",
                 )
-            cost = RoundCost(flops=fleet.flops / m, hbm_bytes=fleet.hbm_bytes / m)
+            cost = transport.cost = RoundCost(flops=fleet.flops / m, hbm_bytes=fleet.hbm_bytes / m,
+                                              collective_bytes=fleet.collective_bytes)
             fleet_oracles = {k: v * m for k, v in c2dfb_oracle_calls(cfg).items()}
             mem0 = memory_peak_bytes(device)
         else:

@@ -462,15 +462,30 @@ def _assert_rows_match(prow, jrow, what, dist_atol=ATOL):
 
 
 @pytest.mark.parametrize("run", sorted(COST_RUNS))
-def test_async_records_and_compute_meter_equal_the_reference(small, run):
+def test_async_records_and_compute_meter_equal_the_reference(small, run, monkeypatch):
     """Round and node records' parity views are equal (floats within the
     tolerance), and compute_flops / hbm_bytes equal the reference's XLA
     counts exactly.  The meter runs no extra round: the problem's oracle
-    counter holds the run's own calls only."""
+    counter holds the run's own calls only.  These bodies exchange nothing:
+    the round cost's ``collective_bytes`` is 0.0, the reference's HLO walk
+    (read from its round-cost memo)."""
+    from repro.obs import compute as jcompute
+
     jb, pb = small
+    jcompute.reset_cost_cache()
     jsink = _obs_run("j", run, jb)
+    want = [c.collective_bytes for c in jcompute._COST_CACHE.values()]
+    got = []
+    for mod, name in ((P, "round_cost"), (peng, "async_round_cost"), (peng, "baseline_round_cost")):
+        def keeping(*args, _fn=getattr(mod, name), **kw):
+            out, cost = _fn(*args, **kw)
+            got.append(cost.collective_bytes)
+            return out, cost
+
+        monkeypatch.setattr(mod, name, keeping)
     pb.problem.oracle_calls.clear()
     psink = _obs_run("p", run, pb)
+    assert got == want == [0.0] and isinstance(got[0], float)
     for kind in ("round", "node"):
         jrows, prows = jobs.parity_rows(jsink.records, kind=kind), pobs.parity_rows(psink.records, kind=kind)
         assert len(prows) == len(jrows) == (2 if kind == "round" else 12)

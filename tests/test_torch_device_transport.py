@@ -13,6 +13,11 @@ device), as tests/test_transport.py runs it:
   also counts the one-hot matmuls of its interpret-mode pack and unpack,
   which the port's kernels do not do; the port's fused count is its dense
   count (ROADMAP §C);
+* ``collective_bytes``, the round's collectives one mesh device receives
+  (the reference's HLO walk, dumped from its round-cost memo): equal on
+  all six runs, 4,800 / 4,800 / 25,920 bytes on the ring and 9,600 /
+  9,600 / 51,840 on the star (dense top-k, dense and fused block top-k),
+  and equal to the closed form `device_collective_bytes`;
 * the ``BENCH_transport.json`` gate config (m = 4, K = 4, T = 3, n = 200,
   p = 30, ring, wan, top-k 0.3): the port's sim and device ``wire_bytes``
   equal the reference's live figures (the committed 147,456 and 147,696
@@ -57,6 +62,7 @@ from repro_torch.core.convert import from_numpy, to_numpy
 from repro_torch.data import bilevel_tasks as ptasks
 from repro_torch.net import make_fabric
 from repro_torch.obs import MemorySink
+from repro_torch.obs.compute import device_collective_bytes
 from repro_torch.transport import DeviceTransport, SimTransport, make_device_round, mesh_for_nodes, run_c2dfb_transport
 
 RTOL, ATOL = 1e-4, 1e-6
@@ -92,6 +98,7 @@ from repro.net import make_fabric
 from repro.obs import MemorySink
 from repro.transport import DeviceTransport, SimTransport
 from repro.transport.engine import run_c2dfb_transport
+from repro.obs.compute import _COST_CACHE, reset_cost_cache
 
 spec = json.loads(sys.argv[1])
 key = jax.random.PRNGKey(0)
@@ -100,6 +107,7 @@ out = {"x0": np.asarray(b.x0).tolist(), "y0": np.asarray(b.y0).tolist(), "runs":
 for topo_name, cfg_name, fused in spec["runs"]:
     topo = make_topology(topo_name, spec["task"]["m"])
     sink = MemorySink()
+    reset_cost_cache()
     st, mets = run_c2dfb_transport(b.problem, topo, C2DFBConfig(**spec["cfgs"][cfg_name]), b.x0, b.y0, spec["T"], key,
                                    DeviceTransport(fused=fused), obs=sink, return_payloads=True)
     rows = sink.rows(kind="round")
@@ -116,6 +124,7 @@ for topo_name, cfg_name, fused in spec["runs"]:
         "node_bytes": [[r["node_bytes"] for r in sink.rows(kind="node") if r["round"] == t] for t in range(spec["T"])],
         "phase_node_bytes": [{k: list(v) for k, v in pl["node_bytes"].items()} for pl in mets["payloads"]],
         "bytes_by_stream": [r["bytes_by_stream"] for r in rows],
+        "collective_bytes": [c.collective_bytes for c in _COST_CACHE.values()],
     }
 unverified = {}
 for topo_name, cfg_name, fused in spec["unverified"]:
@@ -185,11 +194,12 @@ def port(reference):
     out = {}
     for topo_name, cfg_name, fused in RUNS:
         sink = MemorySink()
+        tr = DeviceTransport(fused=fused)
         st, mets = run_c2dfb_transport(
             b.problem, ptopo.make_topology(topo_name, M), C2DFBConfig(**CFGS[cfg_name]), b.x0, b.y0, T, None,
-            DeviceTransport(fused=fused), device="cpu", obs=sink, return_payloads=True,
+            tr, device="cpu", obs=sink, return_payloads=True,
         )
-        out[f"{topo_name}/{cfg_name}/{fused}"] = (st, mets, sink)
+        out[f"{topo_name}/{cfg_name}/{fused}"] = (st, mets, sink, tr)
     return out
 
 
@@ -198,7 +208,7 @@ NAMES = [f"{t}/{c}/{f}" for t, c, f in RUNS]
 
 @pytest.mark.parametrize("name", NAMES)
 def test_states_match_the_reference_device_run(reference, port, name):
-    st, mets, _ = port[name]
+    st, mets, _, _ = port[name]
     want = reference["runs"][name]
     got = dict(x=st.x, s_x=st.s_x, y=st.inner_y.d, y_hat=st.inner_y.d_hat, z=st.inner_z.d, z_s_hat=st.inner_z.s_hat)
     for f, v in got.items():
@@ -208,7 +218,7 @@ def test_states_match_the_reference_device_run(reference, port, name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_executed_bytes_equal_the_reference(reference, port, name):
-    _, mets, sink = port[name]
+    _, mets, sink, _ = port[name]
     want = reference["runs"][name]
     assert [int(v) for v in mets["wire_bytes"]] == want["wire_bytes"]
     assert [int(v) for v in mets["measured_bytes"]] == want["measured_bytes"]
@@ -225,7 +235,7 @@ def test_compute_counts_of_the_device_rows(reference, port, name):
     """Dense runs: the reference's counts of one mesh device's module.  Fused
     runs: the port counts what its dense run counts (B2 and B3 multiply
     nothing), the reference more (its interpret-mode one-hot matmuls)."""
-    _, _, sink = port[name]
+    _, _, sink, _ = port[name]
     rows, nodes = sink.rows(kind="round"), sink.rows(kind="node")
     want = reference["runs"][name]
     dense = reference["runs"][name.replace("/True", "/False")]
@@ -237,6 +247,32 @@ def test_compute_counts_of_the_device_rows(reference, port, name):
         assert want["hbm_bytes"][0] > dense["hbm_bytes"][0]
     else:
         assert [r["compute_flops"] for r in rows] == want["compute_flops"]
+
+
+# one mesh device's collective bytes a round: ring (2 shifts) and star
+# (gathers of m = 4 slices), dense top-k, dense and fused block top-k
+COLLECTIVE_BYTES = {"ring": (4_800.0, 4_800.0, 25_920.0), "star": (9_600.0, 9_600.0, 51_840.0)}
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_collective_bytes_equal_the_reference_and_the_closed_form(reference, port, name):
+    """The round's ``collective_bytes`` (counted on round 0, kept on the
+    transport) is the reference's HLO walk of one mesh device's module,
+    taken live from its round-cost memo: the outer exchange of x and s_x,
+    the setup exchange of each inner loop's reference points and the 4K
+    residual exchanges, each once a ring shift or m slices a gather, dense
+    or as packed records.  It equals `device_collective_bytes` exactly."""
+    _, _, _, tr = port[name]
+    topo_name, cfg_name, fused = name.split("/")
+    fused = fused == "True"
+    want = reference["runs"][name]["collective_bytes"]
+    assert isinstance(tr.cost.collective_bytes, float)
+    assert [tr.cost.collective_bytes] == want
+    assert want[0] == COLLECTIVE_BYTES[topo_name][RUNS.index((topo_name, cfg_name, fused)) % 3]
+    b = _bundle(TASK, reference["x0"], reference["y0"])
+    closed = device_collective_bytes(ptopo.make_topology(topo_name, M), C2DFBConfig(**CFGS[cfg_name]), b.x0, b.y0,
+                                     fused)
+    assert closed == tr.cost.collective_bytes
 
 
 def test_gate_config_wire_bytes_equal_the_reference(reference):
@@ -262,7 +298,7 @@ def test_unverified_meters_give_the_verified_bytes_and_state(reference, port, to
     assert tr.verify is False and tr.axis == "ranks" and DeviceTransport().verify is True
     st, mets = run_c2dfb_transport(b.problem, ptopo.make_topology(topo_name, M), C2DFBConfig(**CFGS[cfg_name]),
                                    b.x0, b.y0, T, None, tr, device="cpu", return_payloads=True)
-    vst, vmets, _ = port[name]
+    vst, vmets, _, _ = port[name]
     for a, v in zip(_tensors(st), _tensors(vst)):
         assert torch.equal(a, v)
     got = [{k: list(v) for k, v in pl["node_bytes"].items()} for pl in mets["payloads"]]
