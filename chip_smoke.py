@@ -867,35 +867,20 @@ def phase_main_path(dev, bundle, cfg_kw: dict, kernel: str, generator=None):
 
 
 def profile_round(problem, topo, cfg, state, generator, tag) -> None:
-    """One more round from the final state (outside the counted run): its
-    host wall time, then a device profile of a second one — device busy
-    share and the device time by kernel name.  The compressor's kernel runs
-    4*K times in it, on the leaves in place: no F.pad of a leaf."""
+    """One more round from the final state (outside the counted run), under
+    the profiler: the compressor's kernel runs 4*K times in it, on the
+    leaves in place: no F.pad of a leaf.  Its times are the benchmark's
+    (``perfbench/``)."""
     from repro_torch.core.c2dfb import c2dfb_round
 
     tag = tag.replace("[main", "[round")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    c2dfb_round(state, generator, problem, topo, cfg)
-    torch.cuda.synchronize()
-    print(f"{tag} steady-state round wall {time.perf_counter() - t0!r} s")
-    events, wall, ops = device_window(lambda: c2dfb_round(state, generator, problem, topo, cfg), 1)
-    busy = busy_us(events)
-    by_name: dict[str, list] = {}
-    for e in events:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += e.time_range.elapsed_us()
-        acc[1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    events, _, ops = device_window(lambda: c2dfb_round(state, generator, problem, topo, cfg), 1)
     kernel = "quant_kernel" if cfg.compressor == "kernel_quant" else "topk_kernel"
-    launches = sum(n for name, (_, n) in by_name.items() if kernel in name)
-    gemms = sum(n for name, (_, n) in by_name.items() if "gemm" in name and "32x32" in name)
-    print(f"{tag} profiled round: wall {wall!r} s, device busy {busy / 1e6!r} s "
-          f"({busy / 1e6 / wall:.3f} of the wall), {len(events)} device activities; {launches} {kernel} "
-          f"launches, {ops['aten::constant_pad_nd']} host pads, {ops['aten::bmm']} bmm ({gemms} long-K GEMM "
-          f"kernels), {ops['aten::mm']} mm")
-    for name, (us, n) in top:
-        print(f"{tag}   {us / 1e3:10.3f} ms  {n:5d}x  {name[:90]}")
+    launches = sum(1 for e in events if kernel in e.name)
+    gemms = sum(1 for e in events if "gemm" in e.name and "32x32" in e.name)
+    print(f"{tag} profiled round: {len(events)} device activities; {launches} {kernel} launches, "
+          f"{ops['aten::constant_pad_nd']} host pads, {ops['aten::bmm']} bmm ({gemms} long-K GEMM kernels), "
+          f"{ops['aten::mm']} mm")
     check(launches == 4 * cfg.K, f"{tag} {kernel} ran {launches} times in a round, want {4 * cfg.K}")
     check(ops["aten::constant_pad_nd"] == 0, f"{tag} a round padded {ops['aten::constant_pad_nd']} tensors")
 
@@ -2748,31 +2733,14 @@ def lm_kernel_times(resid: torch.Tensor, cfg) -> dict:
 
 
 def profile_lm_round(problem, topo, cfg, state) -> None:
-    """One warm round from ``state``, then a profiled one: its wall, the
-    device busy share, the B1 bf16 launches (2 leaves x 4 K) and the device
-    time by kernel."""
+    """A profiled round from ``state``: the B1 bf16 launches (2 leaves x 4
+    K).  Its times are the benchmark's (``perfbench/``)."""
     from repro_torch.core.c2dfb import c2dfb_round
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    c2dfb_round(state, None, problem, topo, cfg)
-    torch.cuda.synchronize()
-    print(f"[lm round] warm round wall {time.perf_counter() - t0!r} s")
-    events, wall, ops = device_window(lambda: c2dfb_round(state, None, problem, topo, cfg), 1)
-    busy = busy_us(events)
-    by_name: dict[str, list] = {}
-    for e in events:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += e.time_range.elapsed_us()
-        acc[1] += 1
-    launches = sum(n for name, (_, n) in by_name.items() if "topk_kernel" in name)
-    gemm = sum(us for name, (us, _) in by_name.items() if "gemm" in name.lower() or "xmma" in name.lower()
-               or "cutlass" in name.lower())
-    print(f"[lm round] profiled round: wall {wall!r} s, device busy {busy / 1e6!r} s ({busy / 1e6 / wall:.3f} of the "
-          f"wall), {len(events)} device activities, {launches} topk_kernel launches, GEMM kernels {gemm / 1e3:.3f} ms, "
+    events, _, ops = device_window(lambda: c2dfb_round(state, None, problem, topo, cfg), 1)
+    launches = sum(1 for e in events if "topk_kernel" in e.name)
+    print(f"[lm round] profiled round: {len(events)} device activities, {launches} topk_kernel launches, "
           f"{ops['aten::bmm']} bmm, {ops['aten::mm']} mm")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"[lm round]   {us / 1e3:10.3f} ms  {n:5d}x  {name[:90]}")
     check(launches == 2 * 4 * cfg.K, f"a round launched B1 {launches} times, want {2 * 4 * cfg.K}")
 
 

@@ -84,6 +84,7 @@ from repro_torch.core.types import Tree, donate_copy
 from repro_torch.net.fabric import edge_list
 from repro_torch.obs.compute import c2dfb_oracle_calls, memory_peak_bytes, oracle_calls_for
 from repro_torch.obs.core import as_obs, scan_heartbeat
+from repro_torch.obs.timeline import ROUND, layer
 from repro_torch.transport.base import as_transport
 
 #: graph captures by round body and branch ("c2dfb/sync", "mdbo/delayed", ...)
@@ -212,7 +213,8 @@ class RoundGraphs:
                     self.slots[k].copy_(v[t])
                 if br in self.graphs and not (t == 0 and first is not None):
                     graph, mets = self.graphs[br]
-                    graph.replay()
+                    with layer(ROUND):
+                        graph.replay()
                 else:  # a branch's first round (and a counted round 0) runs eagerly
                     body = self.bodies[br]
                     if t == 0 and first is not None:

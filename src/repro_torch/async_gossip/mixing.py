@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import Tree, tree_map
+from repro_torch.obs.timeline import MIX, layer
 
 #: Staleness-adaptive damping policies for the delayed mixing operator.
 DAMPING_POLICIES = ("none", "inverse-age", "exp-decay")
@@ -147,13 +148,15 @@ def init_history(tree: Tree, depth: int) -> Tree:
     Slot 0 is the newest version; at local step k slot ``a`` holds version
     ``k - a`` (clamped at the round's initial version, which is what every
     slot starts as — correct because age <= step by construction)."""
-    return tree_map(lambda v: v.unsqueeze(0).expand((depth,) + tuple(v.shape)).clone(), tree)
+    with layer(MIX):
+        return tree_map(lambda v: v.unsqueeze(0).expand((depth,) + tuple(v.shape)).clone(), tree)
 
 
 def push_history(hist: Tree, new: Tree) -> Tree:
     """Shift the history one version: slot 0 becomes ``new`` (a new
     tensor; the old history is not updated in place)."""
-    return tree_map(lambda h, n: torch.cat([n.unsqueeze(0), h[:-1]], dim=0), hist, new)
+    with layer(MIX):
+        return tree_map(lambda h, n: torch.cat([n.unsqueeze(0), h[:-1]], dim=0), hist, new)
 
 
 def mix_delta_delayed(
@@ -169,12 +172,6 @@ def mix_delta_delayed(
     (m, m) weights with their difference sums over j, in f32, emitted at
     the leaf dtype (the reference's einsum, with its operands)."""
     m = ages.shape[0]
-    rows = torch.arange(m, device=ages.device)[:, None]
-    cols = torch.arange(m, device=ages.device)[None, :]
-    Wf = W.to(torch.float32)
-    if damping != "none":
-        Wf = Wf * damping_factor(ages, damping, decay)
-    idx = ages.to(torch.int64)
 
     def leaf(h):
         flat = h.reshape(h.shape[0], m, -1).to(torch.float32)
@@ -183,7 +180,14 @@ def mix_delta_delayed(
         out = torch.bmm(Wf.unsqueeze(1), theirs - mine).squeeze(1)
         return out.reshape(h.shape[1:]).to(h.dtype)
 
-    return tree_map(leaf, hist)
+    with layer(MIX):
+        rows = torch.arange(m, device=ages.device)[:, None]
+        cols = torch.arange(m, device=ages.device)[None, :]
+        Wf = W.to(torch.float32)
+        if damping != "none":
+            Wf = Wf * damping_factor(ages, damping, decay)
+        idx = ages.to(torch.int64)
+        return tree_map(leaf, hist)
 
 
 class DelayedMixer:

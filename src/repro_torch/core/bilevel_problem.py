@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.oracle_graph import OracleGraphs
 from repro_torch.core.types import Tree, broadcast_nodes, tree_leaves, tree_map, tree_unflatten
 from repro_torch.obs.compute import record_oracle
+from repro_torch.obs.timeline import ORACLE, layer
 
 
 def grad_of_sum(fn: Callable, args: tuple, argnum: int) -> Tree:
@@ -91,24 +92,27 @@ class BilevelProblem:
 
         def fn(y, x):
             self.record_oracle("ll_grad")
-            return self.graphs.grad(("h", lam), h, x, y, 1)
+            with layer(ORACLE):
+                return self.graphs.grad(("h", lam), h, x, y, 1)
 
         return fn
 
     def grad_y_g(self):
         def fn(z, x):
             self.record_oracle("ll_grad")
-            return self.graphs.grad("g", self._g, x, z, 1)
+            with layer(ORACLE):
+                return self.graphs.grad("g", self._g, x, z, 1)
 
         return fn
 
     def hyper_grad(self, x, y, z, lam):
         """u_i per Eq. (4)/(24) — fully first-order hypergradient estimate."""
         self.record_oracle("ul_grad", 3)  # gfx, ggx_y, ggx_z: three x-partials
-        gfx = self.graphs.grad("f", self._f, x, y, 0)
-        ggx_y = self.graphs.grad("g", self._g, x, y, 0)
-        ggx_z = self.graphs.grad("g", self._g, x, z, 0)
-        return tree_map(lambda a, b, c: a + lam * (b - c), gfx, ggx_y, ggx_z)
+        with layer(ORACLE):
+            gfx = self.graphs.grad("f", self._f, x, y, 0)
+            ggx_y = self.graphs.grad("g", self._g, x, y, 0)
+            ggx_z = self.graphs.grad("g", self._g, x, z, 0)
+            return tree_map(lambda a, b, c: a + lam * (b - c), gfx, ggx_y, ggx_z)
 
     def _f(self, x, y):
         return self.f(x, y, self.data_f)

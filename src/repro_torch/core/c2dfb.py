@@ -65,6 +65,7 @@ from repro_torch.net.fabric import edge_list, edges_from_weights, mask_phases
 from repro_torch.net.wire import codec_for
 from repro_torch.obs.compute import c2dfb_oracle_calls, memory_peak_bytes, round_cost
 from repro_torch.obs.core import as_obs, scan_heartbeat
+from repro_torch.obs.timeline import METER, ROUND, STATS, UPDATE, layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,49 +134,56 @@ def c2dfb_round_core(
     """Shared outer-round body (Algorithm 1).  ``inner_fn(inner_state,
     generator, grad_fn, eta, tag)`` runs one K-step inner loop and returns
     ``(state, metrics)``; ``tag`` is "y" or "z"."""
-    # ---- outer model update (uncompressed gossip + tracked descent) -------
-    mix_x = mix_delta_dense(W, state.x)
-    x_new = tree_map(
-        lambda x, mx, s: x + cfg.gamma_out * mx - cfg.eta_out * s, state.x, mix_x, state.s_x
-    )
+    with layer(ROUND):
+        # ---- outer model update (uncompressed gossip + tracked descent) ---
+        mix_x = mix_delta_dense(W, state.x)
+        with layer(UPDATE):
+            x_new = tree_map(
+                lambda x, mx, s: x + cfg.gamma_out * mx - cfg.eta_out * s, state.x, mix_x, state.s_x
+            )
 
-    # ---- inner loops on the new x -----------------------------------------
-    grad_h = problem.grad_y_h(cfg.lam)
-    grad_g = problem.grad_y_g()
-    gy = lambda d: grad_h(d, x_new)  # noqa: E731
-    gz = lambda d: grad_g(d, x_new)  # noqa: E731
+        # ---- inner loops on the new x -------------------------------------
+        grad_h = problem.grad_y_h(cfg.lam)
+        grad_g = problem.grad_y_g()
+        gy = lambda d: grad_h(d, x_new)  # noqa: E731
+        gz = lambda d: grad_g(d, x_new)  # noqa: E731
 
-    inner_y = refresh_tracker(state.inner_y, gy)
-    inner_z = refresh_tracker(state.inner_z, gz)
-    inner_y, my = inner_fn(inner_y, generator, gy, cfg.eta_in_y, "y")
-    inner_z, mz = inner_fn(inner_z, generator, gz, cfg.eta_in, "z")
+        inner_y = refresh_tracker(state.inner_y, gy)
+        inner_z = refresh_tracker(state.inner_z, gz)
+        inner_y, my = inner_fn(inner_y, generator, gy, cfg.eta_in_y, "y")
+        inner_z, mz = inner_fn(inner_z, generator, gz, cfg.eta_in, "z")
 
-    # ---- hypergradient + tracker update ------------------------------------
-    u_new = problem.hyper_grad(x_new, inner_y.d, inner_z.d, cfg.lam)
-    mix_s = mix_delta_dense(W, state.s_x)
-    s_x_new = tree_map(
-        lambda s, ms, un, up: s + cfg.gamma_out * ms + un - up,
-        state.s_x, mix_s, u_new, state.u_prev,
-    )
+        # ---- hypergradient + tracker update --------------------------------
+        u_new = problem.hyper_grad(x_new, inner_y.d, inner_z.d, cfg.lam)
+        mix_s = mix_delta_dense(W, state.s_x)
+        with layer(UPDATE):
+            s_x_new = tree_map(
+                lambda s, ms, un, up: s + cfg.gamma_out * ms + un - up,
+                state.s_x, mix_s, u_new, state.u_prev,
+            )
 
-    new_state = C2DFBState(
-        x=x_new, s_x=s_x_new, u_prev=u_new, inner_y=inner_y, inner_z=inner_z, t=state.t + 1
-    )
-    # exact per-round wire bytes (broadcast accounting: outer x + s_x dense
-    # f32 once per node, inner messages counted on the actual payloads)
-    m = W.shape[0]
-    outer_bytes = 2 * tree_count(state.x) * 4 * m
-    metrics = {
-        "hypergrad_norm": torch.sqrt(tree_sq_norm(node_mean(u_new))),
-        "x_consensus_err": consensus_error(x_new),
-        "sx_consensus_err": consensus_error(s_x_new),
-        "y_consensus_err": my["consensus_err"],
-        "y_compress_err": my["compress_err"],
-        "z_consensus_err": mz["consensus_err"],
-        "measured_bytes": my["msg_bytes"] + mz["msg_bytes"] + outer_bytes,
-        # per-node consensus distance (m,): sum of squares == x_consensus_err
-        "x_node_dist": node_consensus_dist(x_new),
-    }
+        new_state = C2DFBState(
+            x=x_new, s_x=s_x_new, u_prev=u_new, inner_y=inner_y, inner_z=inner_z, t=state.t + 1
+        )
+        # exact per-round wire bytes (broadcast accounting: outer x + s_x
+        # dense f32 once per node, inner messages counted on the actual
+        # payloads)
+        m = W.shape[0]
+        outer_bytes = 2 * tree_count(state.x) * 4 * m
+        with layer(METER):
+            measured_bytes = my["msg_bytes"] + mz["msg_bytes"] + outer_bytes
+        with layer(STATS):
+            metrics = {
+                "hypergrad_norm": torch.sqrt(tree_sq_norm(node_mean(u_new))),
+                "x_consensus_err": consensus_error(x_new),
+                "sx_consensus_err": consensus_error(s_x_new),
+                "y_consensus_err": my["consensus_err"],
+                "y_compress_err": my["compress_err"],
+                "z_consensus_err": mz["consensus_err"],
+                "measured_bytes": measured_bytes,
+                # per-node consensus distance (m,): sum of squares == x_consensus_err
+                "x_node_dist": node_consensus_dist(x_new),
+            }
     return new_state, metrics
 
 

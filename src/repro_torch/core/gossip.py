@@ -37,6 +37,7 @@ import torch
 from repro_torch.core.topology import Topology
 from repro_torch.core.types import Tree, tree_leaves, tree_map
 from repro_torch.obs.compute import record_collective
+from repro_torch.obs.timeline import MIX, layer
 
 
 def w_minus_i(W: torch.Tensor) -> torch.Tensor:
@@ -46,7 +47,6 @@ def w_minus_i(W: torch.Tensor) -> torch.Tensor:
 
 def mix_delta_dense(W: torch.Tensor, x: Tree) -> Tree:
     """sum_j w_ij (x_j - x_i) for node-stacked trees (leading axis m)."""
-    W_minus_I = w_minus_i(W)
 
     def leaf(v):
         flat = v.reshape(v.shape[0], -1).to(torch.float32)
@@ -54,7 +54,9 @@ def mix_delta_dense(W: torch.Tensor, x: Tree) -> Tree:
         # mixing arithmetic in f32, emitted at the parameter dtype (bf16 LMs)
         return out.reshape(v.shape).to(v.dtype)
 
-    return tree_map(leaf, x)
+    with layer(MIX):
+        W_minus_I = w_minus_i(W)
+        return tree_map(leaf, x)
 
 
 def mix_step_dense(W: torch.Tensor, gamma, x: Tree) -> Tree:
@@ -127,14 +129,16 @@ def mix_delta_ppermute(topo: Topology, x: Tree) -> Tree:
     if topo.ppermute_schedule is None:
         raise ValueError(f"topology {topo.name} has no static ppermute schedule")
     schedule = topo.ppermute_schedule
-    return mix_received(schedule, tuple(shift_tree(x, s) for s, _ in schedule), x)
+    with layer(MIX):
+        return mix_received(schedule, tuple(shift_tree(x, s) for s, _ in schedule), x)
 
 
 def mix_delta_allgather(topo: Topology, x: Tree) -> Tree:
     """General-graph fallback: every rank gathers every slice and reduces
     with its row of W - I (`mix_gathered`)."""
-    W = torch.as_tensor(topo.W, dtype=torch.float32, device=tree_leaves(x)[0].device)
-    return mix_gathered(w_minus_i(W), gather_tree(x), x)
+    with layer(MIX):
+        W = torch.as_tensor(topo.W, dtype=torch.float32, device=tree_leaves(x)[0].device)
+        return mix_gathered(w_minus_i(W), gather_tree(x), x)
 
 
 def mix_delta_shard(topo: Topology, x: Tree) -> Tree:

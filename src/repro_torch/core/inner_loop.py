@@ -38,6 +38,7 @@ from repro_torch.core.gossip import mix_delta_dense
 from repro_torch.core.types import Tree, consensus_error, tree_leaves, tree_map, tree_sq_norm
 from repro_torch.net.fabric import edge_list
 from repro_torch.net.wire import codec_for, scan_tree_bytes
+from repro_torch.obs.timeline import COMPRESS, STATS, UPDATE, layer
 
 
 class InnerState(NamedTuple):
@@ -68,7 +69,8 @@ def refresh_tracker(state: InnerState, grad_fn) -> InnerState:
     s += grad_new(d) - grad_prev keeps s_bar == mean grad under the NEW
     objective, while reference points persist."""
     g_new = grad_fn(state.d)
-    s = tree_map(lambda s_, gn, gp: s_ + gn - gp, state.s, g_new, state.g_prev)
+    with layer(UPDATE):
+        s = tree_map(lambda s_, gn, gp: s_ + gn - gp, state.s, g_new, state.g_prev)
     return state._replace(s=s, g_prev=g_new)
 
 
@@ -78,8 +80,9 @@ def inner_transmit(
     """The transmit half of a step: the compressed residual ``Q(value - ref)``,
     the per-edge message payload.  ``compress(compressor, generator, tree)``
     applies Q to a node-stacked tree (`compress_stacked` by default)."""
-    resid = tree_map(torch.sub, value, ref)
-    return compress(compressor, generator, resid)
+    with layer(COMPRESS):
+        resid = tree_map(torch.sub, value, ref)
+        return compress(compressor, generator, resid)
 
 
 def inner_apply(
@@ -97,21 +100,25 @@ def inner_apply(
     returns the two transmitted messages ``(q_d, q_s)``.  ``compress`` is
     `inner_transmit`'s (the rank-level engine compresses rank by rank)."""
     # (1) model update: mix on REFERENCES, descend along tracker
-    d_new = tree_map(lambda d, md, s: d + gamma * md - eta * s, state.d, mix_d, state.s)
+    with layer(UPDATE):
+        d_new = tree_map(lambda d, md, s: d + gamma * md - eta * s, state.d, mix_d, state.s)
 
     # (2) reference update via compressed residual (this is the transmission)
     q_d = inner_transmit(compressor, generator, d_new, state.d_hat, compress)
-    d_hat_new = tree_map(torch.add, state.d_hat, q_d)
+    with layer(UPDATE):
+        d_hat_new = tree_map(torch.add, state.d_hat, q_d)
 
     # (3) tracker update: mix on tracker references + gradient delta
     g_new = grad_fn(d_new)
-    s_new = tree_map(
-        lambda s, ms, gn, gp: s + gamma * ms + gn - gp, state.s, mix_s, g_new, state.g_prev
-    )
+    with layer(UPDATE):
+        s_new = tree_map(
+            lambda s, ms, gn, gp: s + gamma * ms + gn - gp, state.s, mix_s, g_new, state.g_prev
+        )
 
     # (4) tracker reference update via compressed residual
     q_s = inner_transmit(compressor, generator, s_new, state.s_hat, compress)
-    s_hat_new = tree_map(torch.add, state.s_hat, q_s)
+    with layer(UPDATE):
+        s_hat_new = tree_map(torch.add, state.s_hat, q_s)
 
     new_state = InnerState(d=d_new, d_hat=d_hat_new, s=s_new, s_hat=s_hat_new, g_prev=g_new)
     return new_state, (q_d, q_s)
@@ -175,16 +182,17 @@ def inner_loop(
     for _ in range(K):
         # the mixes are the call's temporaries: freed before the next step's
         state, (q_d, q_s) = inner_apply(state, generator, grad_fn, compressor, gamma, eta, *mixer(state))
-        nbytes = scan_tree_bytes(compressor, q_d) + scan_tree_bytes(compressor, q_s)
-        msg_bytes = nbytes if msg_bytes is None else msg_bytes + nbytes
+        msg_bytes = scan_tree_bytes(compressor, q_d, msg_bytes)
+        msg_bytes = scan_tree_bytes(compressor, q_s, msg_bytes)
     if msg_bytes is None:
         msg_bytes = torch.zeros((), dtype=torch.int64, device=tree_leaves(state.d)[0].device)
-    metrics = {
-        "consensus_err": consensus_error(state.d),
-        "compress_err": tree_sq_norm(tree_map(torch.sub, state.d, state.d_hat)),
-        "tracker_consensus_err": consensus_error(state.s),
-        "msg_bytes": msg_bytes,
-    }
+    with layer(STATS):
+        metrics = {
+            "consensus_err": consensus_error(state.d),
+            "compress_err": tree_sq_norm(tree_map(torch.sub, state.d, state.d_hat)),
+            "tracker_consensus_err": consensus_error(state.s),
+            "msg_bytes": msg_bytes,
+        }
     if fabric is not None:
         phases, labels = inner_round_phases(state, compressor, fabric.topo, generator, K)
         rep = fabric.simulate_round(phases, round_idx, labels=labels)

@@ -39,6 +39,7 @@ the same inputs.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable
 
 import torch
@@ -46,6 +47,8 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.core.types import Tree, tree_dot, tree_leaves, tree_unflatten
+from repro_torch.obs.compute import record_oracle_graph_trace
+from repro_torch.obs.timeline import ORACLE_TRACE, layer
 
 _ATEN = torch.ops.aten
 
@@ -163,6 +166,7 @@ class OracleGraphs:
         self._tokens: tuple | None = None
         self._x: list[torch.Tensor] = []  # the memo's x, kept alive: its ids key the memo
         self.traces = 0
+        self.trace_seconds = 0.0  # wall seconds the traces took
 
     def forget(self) -> None:
         """Drop the memo and the x it was computed for: the next call
@@ -249,9 +253,15 @@ class OracleGraphs:
         return trace.module(*var, *(self._value(e) for e in trace.frontier))
 
     def _trace(self, flat: Callable, inv: list, var: list) -> _Trace:
-        # traced on the real inputs, outside any counting mode around the call
-        with _disable_current_modes():
-            gm = make_fx(flat)(*inv, *var)
-        _seed_without_loss(gm)
+        with layer(ORACLE_TRACE):
+            t0 = time.perf_counter()
+            # traced on the real inputs, outside any counting mode around the call
+            with _disable_current_modes():
+                gm = make_fx(flat)(*inv, *var)
+            _seed_without_loss(gm)
+            trace = _Trace(gm, len(inv), self)
+            seconds = time.perf_counter() - t0
         self.traces += 1
-        return _Trace(gm, len(inv), self)
+        self.trace_seconds += seconds
+        record_oracle_graph_trace(seconds)
+        return trace

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.core import compression as C
 from repro_torch.core.types import Tree, tree_leaves, tree_unflatten
 from repro_torch.kernels.pack_residuals import pack_sparse_blocks
+from repro_torch.obs.timeline import METER, layer
 
 _HDR_S = struct.Struct("<cII")    # kind, d, nnz
 _HDR_Q = struct.Struct("<cIBI")   # kind, d, bits, block
@@ -403,9 +404,10 @@ def _is_sparse_format(compressor: C.Compressor) -> bool:
     return isinstance(compressor, (C.TopK, C.RandK, C.BlockTopK, C.KernelBlockTopK))
 
 
-def scan_tree_bytes(compressor: C.Compressor, tree: Tree) -> torch.Tensor:
+def scan_tree_bytes(compressor: C.Compressor, tree: Tree, total: torch.Tensor | None = None) -> torch.Tensor:
     """Exact wire bytes of one node-stacked transmission, counted on the
-    payload's device without a host round trip.
+    payload's device without a host round trip, added to ``total`` (an
+    int64 scalar on that device) where one is given.
 
     ``tree`` is the compressed payload (leading node axis m on every leaf);
     the count is per-node *broadcast* accounting — each node's message
@@ -416,19 +418,21 @@ def scan_tree_bytes(compressor: C.Compressor, tree: Tree) -> torch.Tensor:
     int32 with x64 off; the values agree below 2 GiB).
     """
     if isinstance(compressor, C.Rescaled):
-        return scan_tree_bytes(compressor.inner, tree)
+        return scan_tree_bytes(compressor.inner, tree, total)
     leaves = tree_leaves(tree)
-    total = torch.zeros((), dtype=torch.int64, device=leaves[0].device)
-    for leaf in leaves:
-        m = int(leaf.shape[0])
-        d = int(leaf.numel() // m)
-        if _is_sparse_format(compressor):
-            total = total + m * _HDR_S.size + 8 * torch.count_nonzero(leaf)
-        elif isinstance(compressor, C.StochasticQuant):
-            total = total + m * (_HDR_Q.size + 4 + -(-d * compressor.bits // 8))
-        elif isinstance(compressor, C.KernelQuant):
-            nb = -(-d // compressor.block)
-            total = total + m * (_HDR_Q.size + 4 * nb + -(-d * compressor.bits // 8))
-        else:  # Identity / LowRank fallback: dense f32 reconstruction
-            total = total + m * (_HDR_D.size + 4 * d)
-    return total
+    with layer(METER):
+        if total is None:
+            total = torch.zeros((), dtype=torch.int64, device=leaves[0].device)
+        for leaf in leaves:
+            m = int(leaf.shape[0])
+            d = int(leaf.numel() // m)
+            if _is_sparse_format(compressor):
+                total = total + m * _HDR_S.size + 8 * torch.count_nonzero(leaf)
+            elif isinstance(compressor, C.StochasticQuant):
+                total = total + m * (_HDR_Q.size + 4 + -(-d * compressor.bits // 8))
+            elif isinstance(compressor, C.KernelQuant):
+                nb = -(-d // compressor.block)
+                total = total + m * (_HDR_Q.size + 4 * nb + -(-d * compressor.bits // 8))
+            else:  # Identity / LowRank fallback: dense f32 reconstruction
+                total = total + m * (_HDR_D.size + 4 * d)
+        return total

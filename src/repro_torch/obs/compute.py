@@ -13,6 +13,9 @@ Three layers, as in the reference:
    (`c2dfb_oracle_calls`, `mdbo_oracle_calls`, `madsbo_oracle_calls`), and
    `check_structure` pins the two views to each other: a kind the formula
    says is zero must have zero counted calls, a nonzero kind at least one.
+   Beside them, `oracle_graph_traces` counts the oracle gradients that
+   `repro_torch.core.oracle_graph.OracleGraphs` traced in the process and
+   the wall seconds the tracing took.
 
 2. **FLOPs, dot bytes and collective bytes of one round.**  `round_cost`
    runs a run's round 0 under ``torch.utils.flop_counter.FlopCounterMode``
@@ -106,6 +109,23 @@ def oracle_site_delta(before: dict[str, int]) -> dict[str, int]:
         if d:
             out[k] = d
     return out
+
+
+#: module-wide count of the oracle gradients traced (`OracleGraphs`, every
+#: problem's together) and the wall seconds their tracing took
+_GRAPH_TRACES = {"graphs": 0, "seconds": 0.0}
+
+
+def record_oracle_graph_trace(seconds: float) -> None:
+    """Count one traced oracle gradient that took ``seconds`` to trace."""
+    _GRAPH_TRACES["graphs"] += 1
+    _GRAPH_TRACES["seconds"] += float(seconds)
+
+
+def oracle_graph_traces() -> dict:
+    """Snapshot of the process's traced oracle gradients: ``graphs`` and
+    their tracing's wall ``seconds``."""
+    return dict(_GRAPH_TRACES)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ from repro_torch.obs.records import (
     round_record,
     timing_record,
 )
-from repro_torch.obs.timeline import HostSpans, save_merged_trace
+from repro_torch.obs.timeline import HostSpans, layer, save_merged_trace
 
 
 #: one serial number a handle, never reused in the process (`Obs.heartbeat_cache_key`)
@@ -77,10 +77,12 @@ class Obs:
     # -- host spans ---------------------------------------------------------
     @contextlib.contextmanager
     def span(self, name: str, engine: str | None = None):
-        """Record a host wall-clock span AND emit it as a timing record."""
+        """Record a host wall-clock span AND emit it as a timing record;
+        under a profiler it is also a `layer` span on the profiler's clock."""
         t0 = self.hostspans.now()
         try:
-            yield
+            with layer(name):
+                yield
         finally:
             sp = self.hostspans.add(name, t0, self.hostspans.now())
             self.timing(name, sp.seconds, engine=engine)

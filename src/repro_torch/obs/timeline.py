@@ -11,6 +11,12 @@ Perfetto trace-event list: simulated lanes under ``sim:*`` process
 names, host spans under ``host``, each clock starting at its own zero,
 so a single ``ui.perfetto.dev`` load shows simulated staleness drifting
 node lanes apart right above the compile/scan cost of producing it.
+
+`layer` marks the port's layers on the profiler's own clock: under
+``torch.profiler`` each layer's span is a host range of the profiler's, which
+it records beside the launch records and the device activities they start.
+The span names (``ROUND`` ... ``STATS``) are the vocabulary that the
+benchmark's per-layer readers look for.
 """
 
 from __future__ import annotations
@@ -20,6 +26,40 @@ import dataclasses
 import json
 import time
 from typing import Any
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
+
+#: the port's layer spans, each opened in the shared function where its
+#: work is launched: one C2DFB round, an oracle call, the tracing of an
+#: oracle's gradient (inside an oracle call), a gossip mix, a state-update
+#: chain, an inner transmission's compression, the wire metering, and the
+#: round's statistics
+ROUND = "repro_torch/round"
+ORACLE = "repro_torch/oracle"
+ORACLE_TRACE = "repro_torch/oracle_trace"
+MIX = "repro_torch/mix"
+UPDATE = "repro_torch/update"
+COMPRESS = "repro_torch/compress"
+METER = "repro_torch/meter"
+STATS = "repro_torch/stats"
+
+_NULL = contextlib.nullcontext()
+
+
+def layer(name: str):
+    """A span named ``name`` while a profiler records; otherwise one shared
+    null context.  The span is a function-scope range (``_RecordFunctionFast``):
+    a host record alone, where ``torch.profiler.record_function``'s user scope
+    would also add a device record over its kernels' extent to the profile's
+    device activities.  It dispatches no operator, so ``make_fx`` traces none,
+    and it never synchronises, reads a device value or allocates on the
+    device.  No span opens while a CUDA graph captures, since a replay would
+    not repeat it: a replayed round is one span around the replay."""
+    if _profiler_enabled() and not (torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()):
+        return _RecordFunctionFast(name)
+    return _NULL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +95,11 @@ class HostSpans:
 
     @contextlib.contextmanager
     def span(self, name: str):
+        """Record a wall span; under a profiler also a `layer` span."""
         t0 = self.now()
         try:
-            yield
+            with layer(name):
+                yield
         finally:
             self.add(name, t0, self.now())
 

@@ -73,6 +73,7 @@ from repro_torch.kernels.pack_residuals import pack_sparse_blocks, padded_k, unp
 from repro_torch.net import wire
 from repro_torch.net.fabric import NetworkFabric, StragglerModel
 from repro_torch.net.wire import codec_for
+from repro_torch.obs.timeline import COMPRESS, MIX, ROUND, UPDATE, layer
 from repro_torch.transport.base import ExchangeReport, Transport
 
 
@@ -295,39 +296,49 @@ def _device_inner_loop(
     reference), bit-exact with the dense path for <= kpad survivors a
     block (past kpad a block's last survivors are dropped, as the
     reference drops them), and the payload stacks are the packed ``(vals,
-    idx)`` pairs."""
-    copies_d = gossip.init(state.d_hat)
-    copies_s = gossip.init(state.s_hat)
+    idx)`` pairs.  Its chains take `inner_apply`'s span names: the
+    copies' exchanges are ``mix``, the packing ``compress``."""
+    with layer(MIX):
+        copies_d = gossip.init(state.d_hat)
+        copies_s = gossip.init(state.s_hat)
 
     def broadcast(copies, q):
         """Push one compressed residual; returns (copies, wire payload)."""
         if fused is None:
-            return gossip.push(copies, q), q
+            with layer(MIX):
+                return gossip.push(copies, q), q
         block, kpad = fused
-        packed = _pack_tree(q, block, kpad)
-        return gossip.push_packed(copies, packed, block), packed
+        with layer(COMPRESS):
+            packed = _pack_tree(q, block, kpad)
+        with layer(MIX):
+            return gossip.push_packed(copies, packed, block), packed
 
     def apply(hat, pay):
         """The sender's own reference update ``hat + q``: with the fused
         exchange, its records unpacked onto ``hat`` as every receiver's are
         (a -0.0 residual arrives as +0.0, as in the reference)."""
-        if fused is None:
-            return tree_map(torch.add, hat, pay)
-        return _unpack_onto(*pay, hat, fused[0])
+        with layer(UPDATE):
+            if fused is None:
+                return tree_map(torch.add, hat, pay)
+            return _unpack_onto(*pay, hat, fused[0])
 
     pays_d, pays_s = [], []
     for _ in range(K):
-        mix_d = gossip.mix(copies_d, state.d_hat)
-        d_new = tree_map(lambda d, md, s: d + gamma * md - eta * s, state.d, mix_d, state.s)
+        with layer(MIX):
+            mix_d = gossip.mix(copies_d, state.d_hat)
+        with layer(UPDATE):
+            d_new = tree_map(lambda d, md, s: d + gamma * md - eta * s, state.d, mix_d, state.s)
         q_d = inner_transmit(compressor, generator, d_new, state.d_hat)
         copies_d, pay_d = broadcast(copies_d, q_d)
         d_hat_new = apply(state.d_hat, pay_d)
 
         g_new = grad_fn(d_new)
-        mix_s = gossip.mix(copies_s, state.s_hat)
-        s_new = tree_map(
-            lambda s, ms, gn, gp: s + gamma * ms + gn - gp, state.s, mix_s, g_new, state.g_prev
-        )
+        with layer(MIX):
+            mix_s = gossip.mix(copies_s, state.s_hat)
+        with layer(UPDATE):
+            s_new = tree_map(
+                lambda s, ms, gn, gp: s + gamma * ms + gn - gp, state.s, mix_s, g_new, state.g_prev
+            )
         q_s = inner_transmit(compressor, generator, s_new, state.s_hat)
         copies_s, pay_s = broadcast(copies_s, q_s)
         s_hat_new = apply(state.s_hat, pay_s)
@@ -366,30 +377,33 @@ def make_device_round(
     gossip = _gossiper(topo, mesh.device)
 
     def round_fn(x, s_x, u_prev, inner_y, inner_z, generator):
-        # ---- outer model update (dense broadcast + tracked descent) --------
-        mix_x = mix_delta_shard(topo, x)
-        x_new = tree_map(lambda x_, mx, s: x_ + cfg.gamma_out * mx - cfg.eta_out * s, x, mix_x, s_x)
+        with layer(ROUND):
+            # ---- outer model update (dense broadcast + tracked descent) ----
+            mix_x = mix_delta_shard(topo, x)
+            with layer(UPDATE):
+                x_new = tree_map(lambda x_, mx, s: x_ + cfg.gamma_out * mx - cfg.eta_out * s, x, mix_x, s_x)
 
-        # ---- inner loops on the new x ---------------------------------------
-        grad_h = problem.grad_y_h(cfg.lam)
-        grad_g = problem.grad_y_g()
-        gy = lambda d: grad_h(d, x_new)  # noqa: E731
-        gz = lambda d: grad_g(d, x_new)  # noqa: E731
-        inner_y = refresh_tracker(inner_y, gy)
-        inner_z = refresh_tracker(inner_z, gz)
-        inner_y, q_y = _device_inner_loop(
-            inner_y, generator, gy, gossip, compressor, cfg.gamma_in, cfg.eta_in_y, cfg.K, pack_spec
-        )
-        inner_z, q_z = _device_inner_loop(
-            inner_z, generator, gz, gossip, compressor, cfg.gamma_in, cfg.eta_in, cfg.K, pack_spec
-        )
+            # ---- inner loops on the new x -----------------------------------
+            grad_h = problem.grad_y_h(cfg.lam)
+            grad_g = problem.grad_y_g()
+            gy = lambda d: grad_h(d, x_new)  # noqa: E731
+            gz = lambda d: grad_g(d, x_new)  # noqa: E731
+            inner_y = refresh_tracker(inner_y, gy)
+            inner_z = refresh_tracker(inner_z, gz)
+            inner_y, q_y = _device_inner_loop(
+                inner_y, generator, gy, gossip, compressor, cfg.gamma_in, cfg.eta_in_y, cfg.K, pack_spec
+            )
+            inner_z, q_z = _device_inner_loop(
+                inner_z, generator, gz, gossip, compressor, cfg.gamma_in, cfg.eta_in, cfg.K, pack_spec
+            )
 
-        # ---- hypergradient + tracker update ---------------------------------
-        u_new = problem.hyper_grad(x_new, inner_y.d, inner_z.d, cfg.lam)
-        mix_s = mix_delta_shard(topo, s_x)
-        s_x_new = tree_map(
-            lambda s, ms, un, up: s + cfg.gamma_out * ms + un - up, s_x, mix_s, u_new, u_prev
-        )
+            # ---- hypergradient + tracker update -----------------------------
+            u_new = problem.hyper_grad(x_new, inner_y.d, inner_z.d, cfg.lam)
+            mix_s = mix_delta_shard(topo, s_x)
+            with layer(UPDATE):
+                s_x_new = tree_map(
+                    lambda s, ms, un, up: s + cfg.gamma_out * ms + un - up, s_x, mix_s, u_new, u_prev
+                )
         return x_new, s_x_new, u_new, inner_y, inner_z, (q_y, q_z)
 
     return round_fn
